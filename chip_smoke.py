@@ -1,0 +1,465 @@
+"""GPU smoke test of harp_tpu_torch. Phases, in order: build the CUDA
+kernels; read the card; hold each kernel against its plain PyTorch version
+at the flagship shapes, with times; hold the whole step on the card against
+the step on the CPU (2 frames); drive the fit step (18 frames, 448^2,
+reference-density hand, self-shadow) through the kernels, with launch
+counts, step times and memory; profile one step.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, nvcc and the repository checkout; builds the kernels
+into harp_tpu_torch/_build/ on first use. Each phase prints one JSON line;
+any failed check raises, so the exit code is non-zero. The last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and FP32
+# (non-tensor-core) operations/s.
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+# FP32 operations per (pixel, face) pair of the kernels' inner loops,
+# counted from csrc/raster.cu: edge functions, barycentrics, depth (32);
+# the three clipped edge distances and their minimum (62) in soft mode.
+OPS_HARD = 32
+OPS_SOFT = 32 + 62
+
+B_KERNELS = 2  # frames of the flagship scene used to hold kernels vs plain
+B_STEP = 18
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def flagship(n_frames: int, device):
+    """Assets, config, raster config and parameters of the flagship fit
+    (448^2, texture 512, reference density, self-shadow, no VGG; the
+    parameters of harp_tpu's __graft_entry__._build)."""
+    import torch
+    from harp_tpu_torch.assets import build_synthetic_assets
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.convert import params_from_numpy
+    from harp_tpu_torch.render.rasterizer import RasterConfig
+
+    assets = build_synthetic_assets(uv_size=512, density="reference")
+    config = HarpConfig(img_size=448, focal_length=2000.0, texture_size=512,
+                        self_shadow=True, w_vgg=0.0, batch_size=n_frames)
+    # harp_tpu's bench budget (active_fraction 0.28, span_tiles 3) truncates
+    # this scene: the synthetic sequence's hand (seed 0) occupies up to 275
+    # of 784 tiles and has faces wider than 3 tiles, in both packages. The
+    # budget is widened until every overflow counter is zero.
+    rcfg = RasterConfig(image_size=448, active_fraction=0.375, cap=448, span_tiles=4)
+    rng = np.random.RandomState(0)
+    params = params_from_numpy({
+        "pose": 0.15 * rng.randn(n_frames, 45),
+        "rot": 0.05 * rng.randn(n_frames, 3),
+        "trans": np.zeros((n_frames, 3)),
+        "shape": np.zeros(10),
+        "wrist_pose": np.zeros((n_frames, 3)),
+        "cam": np.tile([6.0, -0.08, -0.01], (n_frames, 1)),
+        "verts_disps": np.zeros((assets.num_render_verts, 1)),
+        "texture": np.full((512, 512, 3), 0.7),
+        "normal_map": np.broadcast_to([0.0, 0.0, 1.0], (512, 512, 3)),
+        "light_positions": np.tile([-0.5, -0.5, -0.5], (n_frames, 1)),
+        "amb_ratio": np.asarray(0.4),
+    }, device)
+    return assets, config, rcfg, params
+
+
+def cuda_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_build():
+    from harp_tpu_torch.render.kernels import build
+
+    out = build.build_all()
+    ptxas = [ln.strip() for log in out["logs"].values() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": out["seconds"], "ptxas": ptxas})
+
+
+def phase_device() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi})
+    return smi
+
+
+def kernel_inputs(dev):
+    """Every kernel's inputs on the flagship scene, taken from the main
+    path's own functions: camera and light bins, the coverage upstream
+    gradient and the PCF tap updates."""
+    import torch
+    from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.render import camera as cam_mod
+    from harp_tpu_torch.render.rasterizer import (
+        barycentrics_of_at, raster_compact, scatter_tiles, tile_pixel_coords,
+    )
+    from harp_tpu_torch.render.shadow import (
+        _tap_stack, light_raster_config, shadow_cameras,
+    )
+
+    assets, config, rcfg, params = flagship(B_KERNELS, dev)
+    fids = torch.arange(B_KERNELS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        verts, _ = pipeline.mesh_forward(params, fids, assets, config)
+        R, T = pipeline.camera_for_frames(params, fids, config)
+        screen, rout = pipeline.raster_camera_view_compact(verts, assets, R, T, config, rcfg)
+        cam_bins = rout["bins"]
+        g_alpha = torch.randn(rout["soft_sum"].shape, generator=gen, device=dev)
+        g_ssum = (-torch.exp(rout["soft_sum"]) * g_alpha).contiguous()
+
+        light = params["light_positions"][fids]
+        light_R, light_T, _, _ = shadow_cameras(params["cam"][fids], light,
+                                                verts.mean(1), config)
+        rcfg_l = light_raster_config(rcfg, config.shadow_map_scale)
+        Hl = rcfg_l.image_size
+        focal_l = config.focal_length * Hl / config.img_size
+        screen_l = cam_mod.screen_from_world(verts, light_R, light_T, focal_l, Hl)
+        lout = raster_compact(screen_l, assets.render_faces, rcfg_l, need_soft=False)
+        lpx, lpy = tile_pixel_coords(lout["act_idx"], rcfg_l)
+        _, z_l, m_l = barycentrics_of_at(lout["hard_ids"], screen_l, assets.render_faces,
+                                         rcfg_l, lpx, lpy)
+        depth = scatter_tiles(torch.where(m_l, z_l, -1.0), lout["act_idx"], rcfg_l, -1.0)
+        geom = pipeline.pixel_geometry_compact(verts, screen, rout, assets, rcfg)
+        view_l = cam_mod.world_to_view(geom["points"].reshape(B_KERNELS, -1, 3),
+                                       light_R, light_T)
+        spts = cam_mod.view_to_screen(view_l, focal_l, Hl)
+        x = torch.round(spts[..., 0]).to(torch.int32)
+        y = torch.round(spts[..., 1]).to(torch.int32)
+        a = view_l[..., 2] - config.shadow_bias
+        stack, pos = _tap_stack(depth, x, y)
+        taps = torch.gather(stack, 1, pos[:, :, None].expand(-1, -1, 9))
+        s = torch.sigmoid((taps - a[:, :, None]) * config.shadow_sharpness)
+        g_vis = torch.randn(a.shape, generator=gen, device=dev)
+        upd = (g_vis[:, :, None] * s * (1 - s) * config.shadow_sharpness).contiguous()
+        yc = (torch.clamp(y, -1, Hl) + 2).contiguous()
+        xc = (torch.clamp(x, -1, Hl) + 2).contiguous()
+    return dict(assets=assets, rcfg=rcfg, rcfg_l=rcfg_l, cam_bins=cam_bins,
+                light_bins=lout["bins"], g_ssum=g_ssum, yc=yc, xc=xc, upd=upd,
+                hl=Hl, n_verts=verts.shape[1])
+
+
+def pcf_scatter_library(yc, xc, upd, hl: int):
+    """K3's function as ONE PyTorch call (scatter_add_ over all nine taps):
+    the yardstick for library_ms; the port never calls it."""
+    import torch
+
+    B, N = yc.shape
+    hp4 = hl + 4
+    d = torch.arange(-1, 2, device=yc.device)
+    idx = ((yc.long()[:, :, None, None] + d[:, None]) * hp4
+           + (xc.long()[:, :, None, None] + d[None, :])).reshape(B, N * 9)
+    dpad = torch.zeros(B, hp4 * hp4, dtype=torch.float32, device=yc.device)
+    return dpad.scatter_add_(1, idx, upd.reshape(B, N * 9)).reshape(B, hp4, hp4)
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def phase_kernels(dev):
+    """Each kernel vs its plain version on the card, at the flagship shapes
+    (2 frames), with times. Returns the per-kernel records."""
+    import torch
+    from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+
+    inp = kernel_inputs(dev)
+    records = []
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+    for name, bins, cfg, soft in (("raster_ids_soft", inp["cam_bins"], inp["rcfg"], True),
+                                  ("raster_ids_depth", inp["light_bins"], inp["rcfg_l"], False)):
+        args = (bins["fv9"], bins["s_face"], bins["start_a"], bins["count_a"], bins["act_idx"])
+        hard, sid, ssum = rk.raster_ids(*args, cfg, soft)
+        hard_p, sid_p, ssum_p = rk.raster_ids_plain(*args, cfg, soft)
+        torch.cuda.synchronize()
+        if not torch.equal(hard, hard_p):
+            fail(f"{name}: {int((hard != hard_p).sum())} hard ids differ from the plain version")
+        err = 0.0
+        if soft:
+            if not torch.equal(sid, sid_p):
+                fail(f"{name}: {int((sid != sid_p).sum())} soft ids differ")
+            if not torch.allclose(ssum, ssum_p, rtol=1e-5, atol=1e-6):
+                fail(f"{name}: soft_sum beyond rtol 1e-5: max {float((ssum - ssum_p).abs().max())}")
+            err = float((ssum - ssum_p).abs().max())
+        ms = cuda_ms(lambda: rk.raster_ids(*args, cfg, soft), 20)
+        plain_ms = cuda_ms(lambda: rk.raster_ids_plain(*args, cfg, soft), 3)
+        pairs = float(bins["count_a"].sum()) * cfg.tile * cfg.tile
+        outs = [hard] + ([sid, ssum] if soft else [])
+        b_ms, b_by = bound_ms(nbytes(*args, *outs), pairs * (OPS_SOFT if soft else OPS_HARD))
+        records.append(dict(name=name, route="cuda", source="harp_tpu_torch/csrc/raster.cu",
+                            replaces="harp_tpu/render/pallas/raster_kernel.py:65",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None, pairs=pairs))
+
+    cb = inp["cam_bins"]
+    args = (cb["fv9"], cb["s_face"], cb["start_a"], cb["count_a"], cb["act_idx"], inp["g_ssum"])
+    faces = inp["assets"].render_faces
+    dv = rk.coverage_grad_verts(cb, inp["g_ssum"], faces, inp["n_verts"], inp["rcfg"])
+    dv2 = rk.coverage_grad_verts(cb, inp["g_ssum"], faces, inp["n_verts"], inp["rcfg"])
+    slot_p = rk.coverage_grad_plain(*args, inp["rcfg"])
+    dv_plain = rk.slot_grads_to_verts(cb, slot_p, faces, inp["n_verts"])
+    torch.cuda.synchronize()
+    r = rel(dv, dv_plain)
+    if not r < 1e-4:
+        fail(f"coverage_grad: dverts rel err {r} vs the plain version")
+    spread_k2 = float((dv - dv2).abs().max())
+    ms = cuda_ms(lambda: rk.coverage_grad(*args, inp["rcfg"]), 20)
+    plain_ms = cuda_ms(lambda: rk.coverage_grad_plain(*args, inp["rcfg"]), 3)
+    pairs = float(cb["count_a"].sum()) * inp["rcfg"].tile ** 2
+    out_bytes = cb["act_idx"].numel() * inp["rcfg"].cap * 9 * 4
+    b_ms, b_by = bound_ms(nbytes(*args) + out_bytes, pairs * OPS_SOFT)
+    records.append(dict(name="coverage_grad", route="cuda", source="harp_tpu_torch/csrc/raster.cu",
+                        replaces="harp_tpu/render/pallas/raster_kernel.py:364",
+                        max_abs_err=float((dv - dv_plain).abs().max()), ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        rel_err=r, run_to_run_max_abs=spread_k2, pairs=pairs))
+
+    pargs = (inp["yc"], inp["xc"], inp["upd"], inp["hl"])
+    d1 = pk.pcf_scatter(*pargs)
+    d2 = pk.pcf_scatter(*pargs)
+    dp = pk.pcf_scatter_plain(*pargs)
+    torch.cuda.synchronize()
+    r = rel(d1, dp)
+    if not r < 1e-5:
+        fail(f"pcf_scatter: dpad rel err {r} vs the plain version")
+    ms = cuda_ms(lambda: pk.pcf_scatter(*pargs), 50)
+    plain_ms = cuda_ms(lambda: pk.pcf_scatter_plain(*pargs), 20)
+    lib = pcf_scatter_library(*pargs)
+    if not rel(lib, dp) < 1e-5:
+        fail("pcf_scatter_library disagrees with the plain version")
+    lib_ms = cuda_ms(lambda: pcf_scatter_library(*pargs), 20)
+    b_ms, b_by = bound_ms(nbytes(*pargs[:3], d1), 9.0 * inp["upd"].shape[0] * inp["upd"].shape[1])
+    records.append(dict(name="pcf_scatter", route="cuda", source="harp_tpu_torch/csrc/pcf_scatter.cu",
+                        replaces="harp_tpu/render/pallas/pcf_grad_kernel.py:49",
+                        max_abs_err=float((d1 - dp).abs().max()), ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, rel_err=r,
+                        run_to_run_max_abs=float((d1 - d2).abs().max()),
+                        nonzero_taps=int((inp["upd"] != 0).sum())))
+    for rec in records:
+        emit(dict(phase="kernel", **rec))
+    return records
+
+
+def phase_vs_cpu(dev):
+    """The whole step's losses and gradients on the card (kernels) vs on
+    the CPU (plain versions), 2 frames of the synthetic sequence at 448^2:
+    loss terms to rtol 1e-4, each gradient leaf within 3e-3 of its largest
+    entry, overflow counters equal. The ids are equal on both sides; the
+    float32 sums run in other orders in PyTorch's CPU and CUDA kernels, and
+    the shadow's sharpness-1000 sigmoid amplifies that noise in the
+    appearance gradients (measured up to 8e-4 on normal_map)."""
+    import dataclasses
+
+    import torch
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+    from harp_tpu_torch.fit.driver import compute_losses
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.render import pipeline
+
+    assets, config, rcfg, _ = flagship(2, dev)
+    rcfg = dataclasses.replace(rcfg, face_chunk=64)  # bounds the plain pass's memory
+    images, masks, masks_er, _, init = make_synthetic_sequence(
+        assets, config, rcfg, n_frames=2, seed=0, device=dev)
+    rng = np.random.RandomState(2)
+    ts = config.texture_size
+    offsets = [torch.from_numpy(np.trunc(s * rng.randn(ts, ts, 2)).astype(np.int64))
+               for s in (1.0, 2.0)]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        params, aux = init_params(init, assets, config, device=d)
+        fids = torch.arange(2, device=d)
+        with torch.no_grad():
+            ref = pipeline.mesh_forward(params, fids[:1], assets, config)[0][0]
+        t0 = time.perf_counter()
+        total, br = compute_losses(params, aux, fids, images.to(d), masks.to(d),
+                                   masks_er.to(d), assets, config, rcfg, ref, True, True,
+                                   offsets=[o.to(d) for o in offsets])
+        total.backward()
+        out[d.type] = ({k: float(v) for k, v in br.items()},
+                       {k: p.grad.cpu() for k, p in params.items() if p.grad is not None},
+                       time.perf_counter() - t0)
+    (bg, gg, tg), (bc, gc, tc) = out["cuda"], out["cpu"]
+    for k in bc:
+        if not np.isclose(bg[k], bc[k], rtol=1e-4, atol=1e-7):
+            fail(f"step vs CPU: loss term {k}: {bg[k]} on the card, {bc[k]} on the CPU")
+    rel = {}
+    for k in gc:
+        scale = float(gc[k].abs().max())
+        rel[k] = float((gg[k] - gc[k]).abs().max()) / max(scale, 1e-12)
+        if rel[k] > 3e-3:
+            fail(f"step vs CPU: gradient {k} rel err {rel[k]}")
+    emit({"phase": "step_vs_cpu", "frames": 2, "loss_terms": bg,
+          "grad_rel_err": rel, "card_s": tg, "cpu_s": tc})
+
+
+def phase_step(dev):
+    """The fit step at 18 frames: the synthetic sequence (rendered by the
+    port), then stage-2 steps, one stage-1 and one stage-3 step."""
+    import torch
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, compute_losses, make_train_step
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+
+    assets, config, rcfg, _ = flagship(B_STEP, dev)
+    t0 = time.perf_counter()
+    images, masks, masks_er, _, init = make_synthetic_sequence(
+        assets, config, rcfg, n_frames=B_STEP, seed=0, device=dev)
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    if not (images.shape == (B_STEP, 448, 448, 3) and torch.isfinite(images).all()
+            and 0 < float(masks.mean()) < 0.5):
+        fail("synthetic sequence: bad images or masks")
+    params, aux = init_params(init, assets, config, device=dev)
+    fids = torch.arange(B_STEP, device=dev)
+    with torch.no_grad():
+        ref_verts = pipeline.mesh_forward(params, fids[:1], assets, config)[0][0]
+    gen = torch.Generator(device=dev)
+
+    # Run-to-run spread of the whole gradient: the same losses twice.
+    grads = []
+    for _ in range(2):
+        for p in params.values():
+            p.grad = None
+        total, _ = compute_losses(params, aux, fids, images, masks, masks_er, assets,
+                                  config, rcfg, ref_verts, True, True,
+                                  generator=gen.manual_seed(1))
+        total.backward()
+        grads.append({k: p.grad.clone() for k, p in params.items() if p.grad is not None})
+    spread = {k: float((grads[0][k] - grads[1][k]).abs().max()) for k in grads[0]}
+
+    step = make_train_step(assets, config, rcfg, params, device=dev)
+    for d in (rk.LAUNCHES, pk.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    plan = [(True, True)] * 8 + [(True, False), (False, True)]
+    times, losses = [], []
+    for coarse_on, app_on in plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, br = step(aux, fids, images, masks, masks_er, ref_verts,
+                         coarse_on=coarse_on, app_on=app_on, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(total))
+        if not np.isfinite(losses[-1]):
+            fail(f"non-finite loss in step ({coarse_on}, {app_on})")
+        over = {k: float(br[k]) for k in OVERFLOW_KEYS if k in br}
+        if any(over.values()):
+            fail(f"raster overflow in step ({coarse_on}, {app_on}): {over}")
+        if coarse_on and app_on and len(over) != 6:
+            fail("stage-2 breakdown lacks an overflow counter")
+    launches = dict(rk.LAUNCHES, **pk.LAUNCHES)
+    n2 = plan.count((True, True))
+    expected = {"raster_ids_soft": n2 + 1, "raster_ids_depth": n2 + 2,
+                "coverage_grad": n2 + 1, "pcf_scatter": n2 + 1}
+    if launches != expected:
+        fail(f"launch counts {launches}, expected {expected}")
+    step_ms = float(np.median(times[3:n2])) * 1e3  # the first steps warm up
+    emit({"phase": "step", "frames": B_STEP, "img": 448, "gt_render_s": gt_s,
+          "losses": losses, "step_ms_stage2_median": step_ms,
+          "frames_per_s": B_STEP / (step_ms / 1e3),
+          "step_ms_stage1": times[n2] * 1e3, "step_ms_stage3": times[n2 + 1] * 1e3,
+          "step_ms_all": [t * 1e3 for t in times],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": launches, "grad_run_to_run_max_abs": spread})
+    phase_profile(lambda: step(aux, fids, images, masks, masks_er, ref_verts,
+                               coarse_on=True, app_on=True, generator=gen))
+    return launches
+
+
+def phase_profile(run_step) -> None:
+    """Where one stage-2 step's device time goes (torch.profiler), and the
+    device's busy share of the step's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side events only (kernels, memcpy, memset): an operator's row
+    # repeats the device time of the kernels it launched.
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / wall_ms,
+          "top": [{"name": k[:80], "self_device_ms": ms, "count": c} for k, ms, c in rows[:15]]})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # Full float32 products and convolutions (the JAX reference's precision).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    phase_build()
+    phase_device()
+    records = phase_kernels(dev)
+    phase_vs_cpu(dev)
+    launches = phase_step(dev)
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""Numerically-safe primitives (harp_tpu/ops/numerics.py).
+
+The norm is clamped inside the sqrt so its gradient is zero, not NaN, at 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def safe_norm(x: torch.Tensor, dim=-1, keepdim: bool = False,
+              eps: float = 1e-24) -> torch.Tensor:
+    """L2 norm with zero gradient at x == 0 (clamped inside the sqrt)."""
+    sq = (x * x).sum(dim=dim, keepdim=keepdim)
+    return torch.sqrt(torch.clamp(sq, min=eps))
+
+
+def safe_normalize(x: torch.Tensor, dim=-1, eps: float = 1e-24) -> torch.Tensor:
+    """x / ||x|| with zero output (and finite gradient) at x == 0."""
+    return x / safe_norm(x, dim=dim, keepdim=True, eps=eps)
