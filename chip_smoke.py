@@ -1,9 +1,12 @@
 """GPU smoke test of harp_tpu_torch. Phases, in order: build the CUDA
 kernels; read the card; hold each kernel against its plain PyTorch version
-at the flagship shapes, with times; hold the whole step on the card against
-the step on the CPU (2 frames); drive the fit step (18 frames, 448^2,
-reference-density hand, self-shadow) through the kernels, with launch
-counts, step times and memory; profile one step.
+on the flagship scene at the step's 18 frames (and the fixed-order ones
+against themselves: two launches must give the same bits), and time each
+there; hold the whole step on the card against the step on the
+CPU (2 frames); drive the fit step (18 frames, 448^2, reference-density
+hand, self-shadow) through the kernels, with launch counts, step times and
+memory, after checking that two train steps from one state give the same
+gradients and parameters bit for bit; profile one step.
 
     python3 chip_smoke.py
 
@@ -33,8 +36,10 @@ PEAK_FP32_S = 67e12
 OPS_HARD = 32
 OPS_SOFT = 32 + 62
 
-B_KERNELS = 2  # frames of the flagship scene used to hold kernels vs plain
-B_STEP = 18
+B_STEP = 18  # frames of the step, and of the kernel checks and timings
+# The plain raster versions walk face slots 64 at a time at 18 frames: their
+# (B, A, slots, P) temporaries then fit the card.
+PLAIN_FACE_CHUNK = 64
 
 
 def emit(obj) -> None:
@@ -95,7 +100,7 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def phase_build():
-    from harp_tpu_torch.render.kernels import build
+    from harp_tpu_torch.csrc import build
 
     out = build.build_all()
     ptxas = [ln.strip() for log in out["logs"].values() for ln in log.splitlines()
@@ -112,13 +117,16 @@ def phase_device() -> str:
     return smi
 
 
-def kernel_inputs(dev):
+def kernel_inputs(dev, n_frames: int):
     """Every kernel's inputs on the flagship scene, taken from the main
     path's own functions: camera and light bins, the coverage upstream
-    gradient and the PCF tap updates."""
+    gradient, the PCF tap updates and the texture gather's rows (keys into
+    the 512^2 corner stack) with an upstream gradient of its 24 channels."""
     import torch
+    from harp_tpu_torch.ops.segment import SegmentOrder
     from harp_tpu_torch.render import pipeline
     from harp_tpu_torch.render import camera as cam_mod
+    from harp_tpu_torch.render.shading import texel_corner_rows
     from harp_tpu_torch.render.rasterizer import (
         barycentrics_of_at, raster_compact, scatter_tiles, tile_pixel_coords,
     )
@@ -126,8 +134,8 @@ def kernel_inputs(dev):
         _tap_stack, light_raster_config, shadow_cameras,
     )
 
-    assets, config, rcfg, params = flagship(B_KERNELS, dev)
-    fids = torch.arange(B_KERNELS, device=dev)
+    assets, config, rcfg, params = flagship(n_frames, dev)
+    fids = torch.arange(n_frames, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
         verts, _ = pipeline.mesh_forward(params, fids, assets, config)
@@ -150,7 +158,7 @@ def kernel_inputs(dev):
                                          rcfg_l, lpx, lpy)
         depth = scatter_tiles(torch.where(m_l, z_l, -1.0), lout["act_idx"], rcfg_l, -1.0)
         geom = pipeline.pixel_geometry_compact(verts, screen, rout, assets, rcfg)
-        view_l = cam_mod.world_to_view(geom["points"].reshape(B_KERNELS, -1, 3),
+        view_l = cam_mod.world_to_view(geom["points"].reshape(n_frames, -1, 3),
                                        light_R, light_T)
         spts = cam_mod.view_to_screen(view_l, focal_l, Hl)
         x = torch.round(spts[..., 0]).to(torch.int32)
@@ -163,9 +171,14 @@ def kernel_inputs(dev):
         upd = (g_vis[:, :, None] * s * (1 - s) * config.shadow_sharpness).contiguous()
         yc = (torch.clamp(y, -1, Hl) + 2).contiguous()
         xc = (torch.clamp(x, -1, Hl) + 2).contiguous()
+        ts = config.texture_size
+        row = texel_corner_rows(geom["uv"], ts, ts)[2]
+        tex_order = SegmentOrder(row, ts * ts)
+        tex_order.sorted()
+        tex_g = torch.randn(row.numel(), 24, generator=gen, device=dev)
     return dict(assets=assets, rcfg=rcfg, rcfg_l=rcfg_l, cam_bins=cam_bins,
                 light_bins=lout["bins"], g_ssum=g_ssum, yc=yc, xc=xc, upd=upd,
-                hl=Hl, n_verts=verts.shape[1])
+                hl=Hl, n_verts=verts.shape[1], tex_order=tex_order, tex_g=tex_g)
 
 
 def pcf_scatter_library(yc, xc, upd, hl: int):
@@ -182,6 +195,16 @@ def pcf_scatter_library(yc, xc, upd, hl: int):
     return dpad.scatter_add_(1, idx, upd.reshape(B, N * 9)).reshape(B, hp4, hp4)
 
 
+def segment_sum_library(values, order):
+    """segment_sum's function as ONE PyTorch call (index_put_ with
+    accumulate, the backward PyTorch gives an advanced-indexing gather):
+    the yardstick for library_ms; the port never calls it."""
+    import torch
+
+    out = torch.zeros(order.num_rows, values.shape[1], device=values.device)
+    return out.index_put_((order.key,), values, accumulate=True)
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -192,23 +215,33 @@ def nbytes(*ts) -> int:
 
 
 def phase_kernels(dev):
-    """Each kernel vs its plain version on the card, at the flagship shapes
-    (2 frames), with times. Returns the per-kernel records."""
+    """Each kernel on the card at the main path's shapes (the flagship scene
+    at the step's 18 frames) against its plain version on the same inputs,
+    the fixed-order ones launched twice (the same bits), then timed: ms,
+    plain_ms and library_ms from CUDA events, the bound from these inputs.
+    Returns the per-kernel records."""
+    import dataclasses
+
     import torch
+    from harp_tpu_torch.ops import segment as sg
     from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
     from harp_tpu_torch.render.kernels import raster_kernel as rk
 
-    inp = kernel_inputs(dev)
+    inp = kernel_inputs(dev, B_STEP)
     records = []
 
     def rel(got, want):
         return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
-    for name, bins, cfg, soft in (("raster_ids_soft", inp["cam_bins"], inp["rcfg"], True),
-                                  ("raster_ids_depth", inp["light_bins"], inp["rcfg_l"], False)):
+    def plain_cfg(cfg):
+        return dataclasses.replace(cfg, face_chunk=PLAIN_FACE_CHUNK)
+
+    for name, key, cfg_key, soft in (("raster_ids_soft", "cam_bins", "rcfg", True),
+                                     ("raster_ids_depth", "light_bins", "rcfg_l", False)):
+        bins, cfg = inp[key], inp[cfg_key]
         args = (bins["fv9"], bins["s_face"], bins["start_a"], bins["count_a"], bins["act_idx"])
         hard, sid, ssum = rk.raster_ids(*args, cfg, soft)
-        hard_p, sid_p, ssum_p = rk.raster_ids_plain(*args, cfg, soft)
+        hard_p, sid_p, ssum_p = rk.raster_ids_plain(*args, plain_cfg(cfg), soft)
         torch.cuda.synchronize()
         if not torch.equal(hard, hard_p):
             fail(f"{name}: {int((hard != hard_p).sum())} hard ids differ from the plain version")
@@ -219,8 +252,9 @@ def phase_kernels(dev):
             if not torch.allclose(ssum, ssum_p, rtol=1e-5, atol=1e-6):
                 fail(f"{name}: soft_sum beyond rtol 1e-5: max {float((ssum - ssum_p).abs().max())}")
             err = float((ssum - ssum_p).abs().max())
+        del hard_p, sid_p, ssum_p
         ms = cuda_ms(lambda: rk.raster_ids(*args, cfg, soft), 20)
-        plain_ms = cuda_ms(lambda: rk.raster_ids_plain(*args, cfg, soft), 3)
+        plain_ms = cuda_ms(lambda: rk.raster_ids_plain(*args, plain_cfg(cfg), soft), 2)
         pairs = float(bins["count_a"].sum()) * cfg.tile * cfg.tile
         outs = [hard] + ([sid, ssum] if soft else [])
         b_ms, b_by = bound_ms(nbytes(*args, *outs), pairs * (OPS_SOFT if soft else OPS_HARD))
@@ -229,22 +263,24 @@ def phase_kernels(dev):
                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None, pairs=pairs))
 
-    cb = inp["cam_bins"]
+    cb, cfg = inp["cam_bins"], inp["rcfg"]
+    corners = inp["assets"].sub_topology.corners
     args = (cb["fv9"], cb["s_face"], cb["start_a"], cb["count_a"], cb["act_idx"], inp["g_ssum"])
-    faces = inp["assets"].render_faces
-    dv = rk.coverage_grad_verts(cb, inp["g_ssum"], faces, inp["n_verts"], inp["rcfg"])
-    dv2 = rk.coverage_grad_verts(cb, inp["g_ssum"], faces, inp["n_verts"], inp["rcfg"])
-    slot_p = rk.coverage_grad_plain(*args, inp["rcfg"])
-    dv_plain = rk.slot_grads_to_verts(cb, slot_p, faces, inp["n_verts"])
+    dv = rk.coverage_grad_verts(cb, inp["g_ssum"], corners, cfg)
+    dv2 = rk.coverage_grad_verts(cb, inp["g_ssum"], corners, cfg)
+    dv_plain = rk.slot_grads_to_verts(cb, rk.coverage_grad_plain(*args, plain_cfg(cfg)),
+                                      corners)
     torch.cuda.synchronize()
     r = rel(dv, dv_plain)
     if not r < 1e-4:
         fail(f"coverage_grad: dverts rel err {r} vs the plain version")
     spread_k2 = float((dv - dv2).abs().max())
-    ms = cuda_ms(lambda: rk.coverage_grad(*args, inp["rcfg"]), 20)
-    plain_ms = cuda_ms(lambda: rk.coverage_grad_plain(*args, inp["rcfg"]), 3)
-    pairs = float(cb["count_a"].sum()) * inp["rcfg"].tile ** 2
-    out_bytes = cb["act_idx"].numel() * inp["rcfg"].cap * 9 * 4
+    if spread_k2 != 0.0:
+        fail(f"coverage_grad: two launches differ by {spread_k2}")
+    ms = cuda_ms(lambda: rk.coverage_grad(*args, cfg), 20)
+    plain_ms = cuda_ms(lambda: rk.coverage_grad_plain(*args, plain_cfg(cfg)), 2)
+    pairs = float(cb["count_a"].sum()) * cfg.tile ** 2
+    out_bytes = cb["act_idx"].numel() * cfg.cap * 9 * 4
     b_ms, b_by = bound_ms(nbytes(*args) + out_bytes, pairs * OPS_SOFT)
     records.append(dict(name="coverage_grad", route="cuda", source="harp_tpu_torch/csrc/raster.cu",
                         replaces="harp_tpu/render/pallas/raster_kernel.py:364",
@@ -260,19 +296,54 @@ def phase_kernels(dev):
     r = rel(d1, dp)
     if not r < 1e-5:
         fail(f"pcf_scatter: dpad rel err {r} vs the plain version")
-    ms = cuda_ms(lambda: pk.pcf_scatter(*pargs), 50)
-    plain_ms = cuda_ms(lambda: pk.pcf_scatter_plain(*pargs), 20)
-    lib = pcf_scatter_library(*pargs)
-    if not rel(lib, dp) < 1e-5:
+    spread_k3 = float((d1 - d2).abs().max())
+    if not torch.equal(d1, d2):
+        fail(f"pcf_scatter: two launches differ by {spread_k3}")
+    if not rel(pcf_scatter_library(*pargs), dp) < 1e-5:
         fail("pcf_scatter_library disagrees with the plain version")
+    ms = cuda_ms(lambda: pk.pcf_scatter(*pargs), 20)
+    plain_ms = cuda_ms(lambda: pk.pcf_scatter_plain(*pargs), 20)
     lib_ms = cuda_ms(lambda: pcf_scatter_library(*pargs), 20)
-    b_ms, b_by = bound_ms(nbytes(*pargs[:3], d1), 9.0 * inp["upd"].shape[0] * inp["upd"].shape[1])
+    upd = inp["upd"]
+    b_ms, b_by = bound_ms(nbytes(*pargs[:3], d1), 9.0 * upd.shape[0] * upd.shape[1])
     records.append(dict(name="pcf_scatter", route="cuda", source="harp_tpu_torch/csrc/pcf_scatter.cu",
                         replaces="harp_tpu/render/pallas/pcf_grad_kernel.py:49",
                         max_abs_err=float((d1 - dp).abs().max()), ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, rel_err=r,
-                        run_to_run_max_abs=float((d1 - d2).abs().max()),
-                        nonzero_taps=int((inp["upd"] != 0).sum())))
+                        run_to_run_max_abs=spread_k3, nonzero_taps=int((upd != 0).sum())))
+
+    # The plain segment sum is held in float64 on the same inputs: in float32
+    # its atomics add the 239k-entry background run in a varying order, with
+    # an error of their own near the 1e-5 tolerance (rel 2e-6 to 5e-6 at 2
+    # frames, where that run is 9x shorter).
+    order, vals = inp["tex_order"], inp["tex_g"]
+    s1 = sg.segment_sum(vals, order)
+    s2 = sg.segment_sum(vals, order)
+    sp = sg.segment_sum_plain(vals, order)
+    sp64 = sg.segment_sum_plain(vals.double(), order)
+    torch.cuda.synchronize()
+    r = rel(s1.double(), sp64)
+    if not r < 1e-5:
+        fail(f"segment_sum: rel err {r} vs the plain version in float64")
+    spread_ss = float((s1 - s2).abs().max())
+    if not torch.equal(s1, s2):
+        fail(f"segment_sum: two launches differ by {spread_ss}")
+    if not rel(segment_sum_library(vals, order).double(), sp64) < 1e-5:
+        fail("segment_sum_library disagrees with the plain version")
+    ms = cuda_ms(lambda: sg.segment_sum(vals, order), 20)
+    plain_ms = cuda_ms(lambda: sg.segment_sum_plain(vals, order), 20)
+    lib_ms = cuda_ms(lambda: segment_sum_library(vals, order), 3)
+    sort_ms = cuda_ms(lambda: sg.SegmentOrder(order.key, order.num_rows).sorted(), 20)
+    M, C = vals.shape
+    b_ms, b_by = bound_ms(M * (C + 2) * 4 + order.num_rows * C * 4, float(M * C))
+    counts = torch.bincount(order.key, minlength=order.num_rows)
+    records.append(dict(name="segment_sum", route="cuda", source="harp_tpu_torch/csrc/segment_sum.cu",
+                        replaces="none (XLA's gather transpose in harp_tpu/render/shading.py:64)",
+                        max_abs_err=float((s1.double() - sp64).abs().max()), ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        rel_err=r, max_abs_err_vs_f32_plain=float((s1 - sp).abs().max()),
+                        run_to_run_max_abs=spread_ss, sort_ms=sort_ms, entries=M,
+                        channels=C, rows=order.num_rows, longest_run=int(counts.max())))
     for rec in records:
         emit(dict(phase="kernel", **rec))
     return records
@@ -332,11 +403,14 @@ def phase_vs_cpu(dev):
 
 def phase_step(dev):
     """The fit step at 18 frames: the synthetic sequence (rendered by the
-    port), then stage-2 steps, one stage-1 and one stage-3 step."""
+    port); two stage-2 train steps from one state, whose gradients and
+    updated parameters must be the same bits; then stage-2 steps, one
+    stage-1 and one stage-3 step."""
     import torch
     from harp_tpu_torch.data.synthetic import make_synthetic_sequence
-    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, compute_losses, make_train_step
+    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, make_train_step
     from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.ops import segment as sg
     from harp_tpu_torch.render import pipeline
     from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
     from harp_tpu_torch.render.kernels import raster_kernel as rk
@@ -347,7 +421,8 @@ def phase_step(dev):
         assets, config, rcfg, n_frames=B_STEP, seed=0, device=dev)
     torch.cuda.synchronize()
     gt_s = time.perf_counter() - t0
-    if not (images.shape == (B_STEP, 448, 448, 3) and torch.isfinite(images).all()
+    img = config.img_size
+    if not (images.shape == (B_STEP, img, img, 3) and torch.isfinite(images).all()
             and 0 < float(masks.mean()) < 0.5):
         fail("synthetic sequence: bad images or masks")
     params, aux = init_params(init, assets, config, device=dev)
@@ -356,24 +431,27 @@ def phase_step(dev):
         ref_verts = pipeline.mesh_forward(params, fids[:1], assets, config)[0][0]
     gen = torch.Generator(device=dev)
 
-    # Run-to-run spread of the whole gradient: the same losses twice.
-    grads = []
+    # Run-to-run spread: two stage-2 train steps from one state.
+    runs = []
     for _ in range(2):
-        for p in params.values():
-            p.grad = None
-        total, _ = compute_losses(params, aux, fids, images, masks, masks_er, assets,
-                                  config, rcfg, ref_verts, True, True,
-                                  generator=gen.manual_seed(1))
-        total.backward()
-        grads.append({k: p.grad.clone() for k, p in params.items() if p.grad is not None})
-    spread = {k: float((grads[0][k] - grads[1][k]).abs().max()) for k in grads[0]}
+        ps = {k: p.detach().clone().requires_grad_(True) for k, p in params.items()}
+        make_train_step(assets, config, rcfg, ps, device=dev)(
+            aux, fids, images, masks, masks_er, ref_verts, coarse_on=True, app_on=True,
+            generator=gen.manual_seed(1))
+        runs.append({k: (p.grad.clone(), p.detach().clone()) for k, p in ps.items()
+                     if p.grad is not None})
+    spread = {k: float((g - runs[1][k][0]).abs().max()) for k, (g, _) in runs[0].items()}
+    pspread = {k: float((p - runs[1][k][1]).abs().max()) for k, (_, p) in runs[0].items()}
+    if any(spread.values()) or any(pspread.values()):
+        fail(f"two steps from one state differ: gradients {spread}, parameters {pspread}")
+    del runs
 
     step = make_train_step(assets, config, rcfg, params, device=dev)
-    for d in (rk.LAUNCHES, pk.LAUNCHES):
+    for d in (rk.LAUNCHES, pk.LAUNCHES, sg.LAUNCHES):
         for k in d:
             d[k] = 0
     torch.cuda.reset_peak_memory_stats()
-    plan = [(True, True)] * 8 + [(True, False), (False, True)]
+    plan = [(True, True)] * 8 + [(True, False)] * 3 + [(False, True)] * 3
     times, losses = [], []
     for coarse_on, app_on in plan:
         torch.cuda.synchronize()
@@ -390,20 +468,31 @@ def phase_step(dev):
             fail(f"raster overflow in step ({coarse_on}, {app_on}): {over}")
         if coarse_on and app_on and len(over) != 6:
             fail("stage-2 breakdown lacks an overflow counter")
-    launches = dict(rk.LAUNCHES, **pk.LAUNCHES)
-    n2 = plan.count((True, True))
-    expected = {"raster_ids_soft": n2 + 1, "raster_ids_depth": n2 + 2,
-                "coverage_grad": n2 + 1, "pcf_scatter": n2 + 1}
+    launches = dict(rk.LAUNCHES, **pk.LAUNCHES, **sg.LAUNCHES)
+    n2, n1, n3 = (plan.count(f) for f in ((True, True), (True, False), (False, True)))
+    # K1 soft and K2 run in stages 1 and 2; K1 depth-only for the light in
+    # stages 2 and 3 and for the camera in stage 3; K3 in stages 2 and 3.
+    # segment_sum per step: nine in stages 2 and 3 (the vertex normals of
+    # the displacement and of the shading, the face-row gathers of the
+    # camera and the light, the packed attributes, the texture, the two
+    # texture regularisers, K3's centre sums), one in stage 1 (the
+    # displacement's vertex normals), and one more wherever K2 runs (its
+    # vertex scatter).
+    expected = {"raster_ids_soft": n2 + n1, "raster_ids_depth": n2 + 2 * n3,
+                "coverage_grad": n2 + n1, "pcf_scatter": n2 + n3,
+                "segment_sum": 9 * (n2 + n3) + n1 + (n2 + n1)}
     if launches != expected:
         fail(f"launch counts {launches}, expected {expected}")
     step_ms = float(np.median(times[3:n2])) * 1e3  # the first steps warm up
-    emit({"phase": "step", "frames": B_STEP, "img": 448, "gt_render_s": gt_s,
+    emit({"phase": "step", "frames": B_STEP, "img": img, "gt_render_s": gt_s,
           "losses": losses, "step_ms_stage2_median": step_ms,
           "frames_per_s": B_STEP / (step_ms / 1e3),
-          "step_ms_stage1": times[n2] * 1e3, "step_ms_stage3": times[n2 + 1] * 1e3,
+          "step_ms_stage1_median": float(np.median(times[n2:n2 + n1])) * 1e3,
+          "step_ms_stage3_median": float(np.median(times[n2 + n1:])) * 1e3,
           "step_ms_all": [t * 1e3 for t in times],
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "launches": launches, "grad_run_to_run_max_abs": spread})
+          "launches": launches, "grad_run_to_run_max_abs": spread,
+          "param_run_to_run_max_abs": pspread})
     phase_profile(lambda: step(aux, fids, images, masks, masks_er, ref_verts,
                                coarse_on=True, app_on=True, generator=gen))
     return launches

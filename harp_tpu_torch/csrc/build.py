@@ -18,8 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parents[2]
-CSRC = _PKG / "csrc"
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -30,6 +30,7 @@ COMMON = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 SOURCES = {
     "raster": ("raster.cu", ["-fmad=false"]),
     "pcf_scatter": ("pcf_scatter.cu", []),
+    "segment_sum": ("segment_sum.cu", []),
 }
 
 

@@ -18,6 +18,7 @@ from harp_tpu_torch.fit.optimizer import build_optimizers
 from harp_tpu_torch.losses.basic import arap_loss, kps_anchor_loss, vert_disp_reg
 from harp_tpu_torch.losses.texture_reg import albedo_reg, normal_reg
 from harp_tpu_torch.ops.mesh import laplacian_smoothing_loss, normal_consistency_loss
+from harp_tpu_torch.ops.numerics import jnp_abs
 from harp_tpu_torch.render import pipeline
 from harp_tpu_torch.render.rasterizer import (
     RasterConfig, gather_tiles, soft_alpha_fast_pack,
@@ -48,11 +49,11 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
 
     if coarse_on:
         alpha_c = soft_alpha_fast_pack(rout["soft_sum"], rout["bins"], screen,
-                                       assets.render_faces, rcfg)
+                                       assets.sub_topology.corners, rcfg)
         m_c = gather_tiles(batch_masks, act_idx, rcfg)
         # mean |alpha - m| over the full image; inactive tiles: alpha = 0.
         losses["silhouette"] = (
-            (alpha_c - m_c).abs().sum() + batch_masks.sum() - m_c.sum()) / n_px
+            jnp_abs(alpha_c - m_c).sum() + batch_masks.sum() - m_c.sum()) / n_px
         if not config.known_appearance:
             losses["kps_anchor"] = kps_anchor_loss(aux["init_joints"][fids], joints,
                                                    use_arm=config.use_arm)
@@ -89,9 +90,9 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
                              device=rgb_c.device)
         gt_c = gather_tiles(batch_imgs, act_idx, rcfg)
         me_c = gather_tiles(batch_masks_er, act_idx, rcfg)[..., None]
-        full_bg_term = ((bg - batch_imgs) * batch_masks_er[..., None]).abs().sum()
-        comp_bg_term = ((bg - gt_c) * me_c).abs().sum()
-        comp_term = ((rgb_c - gt_c) * me_c).abs().sum()
+        full_bg_term = jnp_abs((bg - batch_imgs) * batch_masks_er[..., None]).sum()
+        comp_bg_term = jnp_abs((bg - gt_c) * me_c).sum()
+        comp_term = jnp_abs((rgb_c - gt_c) * me_c).sum()
         losses["photo"] = (comp_term + full_bg_term - comp_bg_term) / (n_px * 3)
         off_a, off_n = offsets if offsets is not None else (None, None)
         losses["albedo"] = albedo_reg(params["texture"], generator, std=1.0,

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from harp_tpu_torch.ops.numerics import safe_norm
+from harp_tpu_torch.ops.numerics import jnp_abs, safe_norm
+from harp_tpu_torch.ops.segment import SegmentOrder, gather_rows
 
 
 def neighbor_offsets(generator: torch.Generator, shape, std: float,
@@ -23,14 +24,18 @@ def neighbor_offsets(generator: torch.Generator, shape, std: float,
 def smooth_texture_reg(texture: torch.Tensor, generator=None, std: float = 2.0,
                        uv_mask: torch.Tensor | None = None,
                        offsets: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean |texel - random neighbour|_1 / 3, uv-masked."""
+    """Mean |texel - random neighbour|_1 / 3, uv-masked. |.| has jnp.abs's
+    derivative (+1 at 0: on a uniform map every texel moves), and the
+    neighbour gather's backward is the fixed-order segment sum."""
     H, W = texture.shape[0], texture.shape[1]
     dev = texture.device
     dist = (neighbor_offsets(generator, (H, W), std, dev) if offsets is None
             else torch.as_tensor(offsets, device=dev).long())
     gx = (torch.arange(H, device=dev)[:, None] + dist[..., 0]).clamp(0, H - 1)
     gy = (torch.arange(W, device=dev)[None, :] + dist[..., 1]).clamp(0, W - 1)
-    diff = (texture - texture[gx, gy]).abs().sum(-1) / 3.0
+    C = texture.shape[2]
+    tar = gather_rows(texture.reshape(H * W, C), SegmentOrder(gx * W + gy, H * W))
+    diff = jnp_abs(texture - tar.reshape(H, W, C)).sum(-1) / 3.0
     if uv_mask is not None:
         diff = diff * uv_mask
     return diff.mean()

@@ -2,17 +2,21 @@
 
 Topology (edges, neighbour lists, subdivision pattern, edge-adjacent face
 pairs) is built once in numpy with pytorch3d's edge and 4-way subdivision
-ordering; the per-step operators are gathers and index-adds on tensors.
+ordering; the per-step operators are gathers and fixed-order segment sums
+on tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
 
 from harp_tpu_torch.ops.numerics import safe_norm, safe_normalize
+from harp_tpu_torch.ops.segment import TableOrder, sum_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +27,8 @@ class MeshTopology:
     faces_to_edges (F, 3) edge ids [e12, e20, e01] (edge i opposite vertex
     i); neighbors (V, D) padded adjacency (pad = own index) with
     neighbor_mask (V, D); edge_face_pairs (P, 2) faces sharing an edge.
+    corners: the face table's corners and their stable sort, made at first
+    use and kept, for the fixed-order sums of face values onto vertices.
     """
 
     num_verts: int
@@ -32,6 +38,10 @@ class MeshTopology:
     neighbors: np.ndarray
     neighbor_mask: np.ndarray
     edge_face_pairs: np.ndarray
+
+    @functools.cached_property
+    def corners(self) -> TableOrder:
+        return TableOrder.of(self.faces, self.num_verts)
 
 
 def build_topology(faces: np.ndarray, num_verts: int) -> MeshTopology:
@@ -133,14 +143,20 @@ def face_normals(verts: torch.Tensor, faces) -> torch.Tensor:
     return torch.linalg.cross(p1 - p0, p2 - p0, dim=-1)
 
 
-def vertex_normals(verts: torch.Tensor, faces) -> torch.Tensor:
-    """Area-weighted vertex normals (pytorch3d verts_normals), (..., V, 3)."""
-    f = _index(faces, verts.device)
-    fn = face_normals(verts, faces)
-    acc = torch.zeros_like(verts)
-    for k in range(3):
-        acc = acc.index_add(-2, f[:, k], fn)
-    return safe_normalize(acc)
+def vertex_normals(verts: torch.Tensor, topology: MeshTopology) -> torch.Tensor:
+    """Area-weighted vertex normals (pytorch3d verts_normals), (..., V, 3).
+    Each face's normal is added at its three corners by a fixed-order
+    segment sum over the topology's corner order (sorted once), so the sum
+    is the same bits from run to run; its backward is a gather."""
+    lead, V = verts.shape[:-2], verts.shape[-2]
+    if V != topology.num_verts:
+        raise ValueError(f"verts have {V} vertices, the topology {topology.num_verts}")
+    n = math.prod(lead)
+    fn = face_normals(verts, topology.faces)  # (..., F, 3)
+    F = fn.shape[-2]
+    corners = fn.reshape(n, F, 1, 3).expand(n, F, 3, 3).reshape(n * F * 3, 3)
+    acc = sum_rows(corners, topology.corners.batched(n, verts.device))
+    return safe_normalize(acc.reshape(lead + (V, 3)))
 
 
 def laplacian_smoothing_loss(verts: torch.Tensor, topology: MeshTopology) -> torch.Tensor:

@@ -8,12 +8,13 @@ launched by pallas_pcf_scatter (:95-148) from shadow._pcf_sum_depth_bwd:
 on the (B, Hl + 4, Hl + 4) twice-edge-padded light depth map.
 
 What bounds it on this card: bytes. Each camera pixel reads 8 bytes of tap
-centres and 36 bytes of tap updates and does nine additions; the 200 KB a
-frame target stays in the 50 MB L2, where the float atomics land. The TPU
-kernel's one-hot matrix products existed only to use the MXU; here one
-thread per camera pixel issues nine atomicAdds, skipping updates that are
-exactly zero (the saturated sigmoid outside the shadow band). Float atomics
-add in an order that varies from run to run, so the last bits of dpad do.
+centres and 36 bytes of tap updates and does nine additions. The TPU
+kernel's one-hot matrix products existed only to use the MXU. Here the sum
+is taken in an order fixed by the input, with no float atomics, so dpad is
+the same bits from run to run: the pixels are sorted by tap centre (one
+sort of N keys, not 9N), the fixed-order segment sum (ops/segment.py) adds
+each pixel's nine updates into its centre, and csrc/pcf_scatter.cu gathers
+the nine centre sums that land on each map texel, in tap order.
 
 fold_pad2 (plain tensor code) folds the padding back to (B, Hl, Hl).
 """
@@ -24,7 +25,8 @@ import ctypes
 
 import torch
 
-from harp_tpu_torch.render.kernels import build
+from harp_tpu_torch.ops.segment import SegmentOrder, segment_sum
+from harp_tpu_torch.csrc import build
 
 LAUNCHES = {"pcf_scatter": 0}
 
@@ -33,8 +35,8 @@ def _lib():
     lib = build.load("pcf_scatter")
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.pcf_scatter.argtypes = [P, P, P, I, I, I, P, P]
-        lib.pcf_scatter.restype = I
+        lib.pcf_gather_taps.argtypes = [P, I, I, P, P]
+        lib.pcf_gather_taps.restype = I
         lib._typed = True
     return lib
 
@@ -55,10 +57,14 @@ def pcf_scatter(yc: torch.Tensor, xc: torch.Tensor, upd: torch.Tensor,
         raise ValueError(f"unsupported device {yc.device}")
     if not (yc.is_contiguous() and xc.is_contiguous() and upd.is_contiguous()):
         raise ValueError("pcf_scatter inputs must be contiguous")
-    dpad = torch.empty(B, hl + 4, hl + 4, dtype=torch.float32, device=yc.device)
-    rc = _lib().pcf_scatter(yc.data_ptr(), xc.data_ptr(), upd.data_ptr(), B, N,
-                            hl, dpad.data_ptr(),
-                            torch.cuda.current_stream(yc.device).cuda_stream)
+    dev = yc.device
+    hp4 = hl + 4
+    b = torch.arange(B, device=dev)[:, None]
+    centre = SegmentOrder((b * hp4 + yc) * hp4 + xc, B * hp4 * hp4)
+    csum = segment_sum(upd.reshape(B * N, 9), centre)
+    dpad = torch.empty(B, hp4, hp4, dtype=torch.float32, device=dev)
+    rc = _lib().pcf_gather_taps(csum.data_ptr(), B, hl, dpad.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "pcf_scatter")
     LAUNCHES["pcf_scatter"] += 1
     return dpad

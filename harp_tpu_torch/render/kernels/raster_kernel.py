@@ -20,9 +20,9 @@ over: each block reads its list straight from the sorted pair runs.
 K2 keeps the per-(tile, slot) gradient buffer (B, A, cap, 9) of the TPU
 design: a warp-shuffle then shared-memory sum over the tile's pixels in a
 fixed order, so the result does not depend on scheduling. The face segment
-sum and the vertex scatter are gathers in a fixed order (a permutation
-scatter and a padded vertex-incidence table), not atomics: the gradient is
-the same from run to run.
+sum and the vertex scatter are in a fixed order (a permutation scatter, a
+sum over each face's pairs, and the segment sum of ops/segment.py over the
+face table), not atomics: the gradient is the same from run to run.
 
 On a CPU tensor each wrapper runs its plain PyTorch version, which repeats
 the kernel's arithmetic in the same order (the CPU tests hold it against
@@ -35,9 +35,10 @@ import ctypes
 
 import torch
 
-from harp_tpu_torch.render.kernels import build
+from harp_tpu_torch.ops.segment import TableOrder, segment_sum
+from harp_tpu_torch.csrc import build
 from harp_tpu_torch.render.rasterizer import (
-    RasterConfig, as_faces, f32, face_pixel_geometry, softplus, tile_pixel_coords,
+    RasterConfig, f32, face_pixel_geometry, softplus, tile_pixel_coords,
 )
 
 LAUNCHES = {"raster_ids_soft": 0, "raster_ids_depth": 0, "coverage_grad": 0}
@@ -295,18 +296,19 @@ def coverage_grad_plain(fv9, s_face, start_a, count_a, act_idx, g, cfg: RasterCo
     return out
 
 
-def coverage_grad_verts(bins: dict, g_ssum, faces, num_verts: int,
-                        cfg: RasterConfig):
+def coverage_grad_verts(bins: dict, g_ssum, corners: TableOrder, cfg: RasterConfig):
     """d(sum over pixels of g_ssum * coverage log-sum) / d verts_px:
-    (B, num_verts, 3): K2 per (tile, slot), then slot_grads_to_verts."""
+    (B, V, 3): K2 per (tile, slot), then slot_grads_to_verts. corners: the
+    face table's corner order (MeshTopology.corners), V its rows."""
     slot_g = coverage_grad(bins["fv9"], bins["s_face"], bins["start_a"],
                            bins["count_a"], bins["act_idx"], g_ssum, cfg)
-    return slot_grads_to_verts(bins, slot_g, faces, num_verts)
+    return slot_grads_to_verts(bins, slot_g, corners)
 
 
-def slot_grads_to_verts(bins: dict, slot_g, faces, num_verts: int):
-    """Per-(tile, slot) gradients (B, A, cap, 9) -> (B, num_verts, 3): the
-    face segment sum and the vertex scatter, as gathers in a fixed order."""
+def slot_grads_to_verts(bins: dict, slot_g, corners: TableOrder):
+    """Per-(tile, slot) gradients (B, A, cap, 9) -> (B, V, 3): the face
+    segment sum and the vertex scatter over the corner order, in a fixed
+    order."""
     fv9 = bins["fv9"]
     B, F = fv9.shape[0], fv9.shape[1]
     A, cap = slot_g.shape[1], slot_g.shape[2]
@@ -329,18 +331,6 @@ def slot_grads_to_verts(bins: dict, slot_g, faces, num_verts: int):
     # each face's S^2 pairs summed in a fixed order.
     per_pair = torch.zeros_like(g_j).scatter_(1, bins["order"][..., None].expand(-1, -1, 9), g_j)
     per_face = per_pair.reshape(B, F, n // F, 9).sum(2)
-    return _scatter_corners(per_face.reshape(B, F * 3, 3), as_faces(faces, dev), num_verts)
-
-
-def _scatter_corners(rows, faces, num_verts: int):
-    """rows (B, 3F, 3) of face corners -> (B, V, 3) vertex sums, through a
-    padded vertex -> corner table, summed in corner order."""
-    fc = faces.reshape(-1)
-    sv, perm = torch.sort(fc, stable=True)
-    cnt = torch.bincount(fc, minlength=num_verts)
-    D = max(int(cnt.max()), 1)
-    rank = torch.arange(fc.numel(), device=fc.device) - (torch.cumsum(cnt, 0) - cnt)[sv]
-    table = torch.full((num_verts, D), fc.numel(), dtype=torch.int64, device=fc.device)
-    table[sv, rank] = perm
-    padded = torch.cat([rows, torch.zeros_like(rows[:, :1])], 1)
-    return padded[:, table].sum(2)
+    # Face corners -> vertices: the fixed-order segment sum over the face table.
+    dv = segment_sum(per_face.reshape(B * F * 3, 3), corners.batched(B, dev))
+    return dv.reshape(B, corners.num_rows, 3)

@@ -12,8 +12,8 @@ from harp_tpu_torch.ops.numerics import safe_normalize
 from harp_tpu_torch.render import camera as cam_mod
 from harp_tpu_torch.render import shading
 from harp_tpu_torch.render.rasterizer import (
-    RasterConfig, barycentrics_of, barycentrics_of_at, get_hard_ids, raster_compact,
-    scatter_tiles, soft_alpha_fast_pack, tile_pixel_coords,
+    RasterConfig, barycentrics_of, barycentrics_of_at, face_row_order, get_hard_ids,
+    raster_compact, scatter_tiles, soft_alpha_fast_pack, tile_pixel_coords,
 )
 
 
@@ -35,7 +35,7 @@ def mesh_forward(params: dict, fids: torch.Tensor, assets, config):
     disps = params.get("verts_disps")
     if disps is not None:
         if disps.shape[-1] == 1:
-            verts = verts + vertex_normals(verts, assets.render_faces) * disps[None]
+            verts = verts + vertex_normals(verts, assets.sub_topology) * disps[None]
         else:
             verts = verts + disps[None]
     return verts, joints_mm
@@ -55,7 +55,7 @@ def render_silhouette(verts, assets, R, T, config, raster_cfg: RasterConfig):
     screen = cam_mod.screen_from_world(verts, R, T, config.focal_length, config.img_size)
     out = raster_compact(screen, assets.render_faces, raster_cfg, need_hard=False)
     alpha = soft_alpha_fast_pack(out["soft_sum"], out["bins"], screen,
-                                 assets.render_faces, raster_cfg)
+                                 assets.sub_topology.corners, raster_cfg)
     return scatter_tiles(alpha, out["act_idx"], raster_cfg, 0.0)
 
 
@@ -90,7 +90,7 @@ def render_rgb(verts, assets, R, T, config, raster_cfg: RasterConfig,
     bary, _, mask = barycentrics_of(ids, screen, assets.render_faces, raster_cfg)
     faces = assets.render_faces
     attrs = shading.interpolate_packed_attrs(
-        verts, vertex_normals(verts, faces), faces, assets.verts_uvs,
+        verts, vertex_normals(verts, assets.sub_topology), faces, assets.verts_uvs,
         assets.faces_uvs, ids, bary)
     return _shade(attrs[..., 0:3], attrs[..., 3:6], attrs[..., 6:8], mask, R, T,
                   config, texture, normal_map, light_positions,
@@ -114,10 +114,11 @@ def pixel_geometry_compact(verts, screen, rout, assets, raster_cfg: RasterConfig
     faces = assets.render_faces
     px, py = tile_pixel_coords(rout["act_idx"], raster_cfg)
     ids = rout["hard_ids"]
-    bary, _, mask = barycentrics_of_at(ids, screen, faces, raster_cfg, px, py)
+    order = face_row_order(ids, len(faces))  # one sort for both gathers
+    bary, _, mask = barycentrics_of_at(ids, screen, faces, raster_cfg, px, py, order)
     attrs = shading.interpolate_packed_attrs(
-        verts, vertex_normals(verts, faces), faces, assets.verts_uvs,
-        assets.faces_uvs, ids, bary)
+        verts, vertex_normals(verts, assets.sub_topology), faces, assets.verts_uvs,
+        assets.faces_uvs, ids, bary, order)
     return {"points": attrs[..., 0:3], "normals": attrs[..., 3:6],
             "uv": attrs[..., 6:8], "mask": mask}
 

@@ -22,6 +22,8 @@ import math
 import numpy as np
 import torch
 
+from harp_tpu_torch.ops.segment import SegmentOrder, gather_rows
+
 TC = 8  # active-tile budget granularity (harp_tpu's Pallas TC)
 
 
@@ -323,19 +325,32 @@ def scatter_tiles(x: torch.Tensor, act_idx: torch.Tensor, cfg: RasterConfig, fil
     return _untile(full, cfg)
 
 
-def _face_rows(verts_px: torch.Tensor, faces, ids: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 3) vertices of face `ids` (clamped at 0) per pixel."""
+def face_row_order(ids: torch.Tensor, num_faces: int) -> SegmentOrder:
+    """SegmentOrder of the per-pixel face rows b * F + max(id, 0) of (B, ...)
+    ids: the face-row and packed-attribute gathers by one set of ids share
+    it, and so one sort."""
+    B = ids.shape[0]
+    b = torch.arange(B, device=ids.device).reshape((B,) + (1,) * (ids.dim() - 1))
+    return SegmentOrder(b * num_faces + ids.long().clamp(min=0), B * num_faces)
+
+
+def _face_rows(verts_px: torch.Tensor, faces, ids: torch.Tensor,
+               order: SegmentOrder | None = None) -> torch.Tensor:
+    """(..., 3, 3) vertices of face `ids` (clamped at 0) per pixel; the
+    gather's backward is the fixed-order segment sum."""
     B = verts_px.shape[0]
     f = as_faces(faces, verts_px.device)
-    fv9 = verts_px[:, f].reshape(B, -1, 9)
-    safe = ids.long().clamp(min=0).reshape(B, -1, 1).expand(-1, -1, 9)
-    return torch.gather(fv9, 1, safe).reshape(ids.shape + (3, 3))
+    fv9 = verts_px[:, f].reshape(B * f.shape[0], 9)
+    if order is None:
+        order = face_row_order(ids, f.shape[0])
+    return gather_rows(fv9, order).reshape(ids.shape + (3, 3))
 
 
-def barycentrics_of_at(ids, verts_px, faces, cfg: RasterConfig, px, py):
+def barycentrics_of_at(ids, verts_px, faces, cfg: RasterConfig, px, py,
+                       order: SegmentOrder | None = None):
     """Differentiable (bary (..., 3), z, mask) for hard ids at pixel
-    coordinates px / py (compact or full layout)."""
-    g = face_pixel_geometry(_face_rows(verts_px, faces, ids), px, py, cfg,
+    coordinates px / py (compact or full layout); order as in _face_rows."""
+    g = face_pixel_geometry(_face_rows(verts_px, faces, ids, order), px, py, cfg,
                             need_dist=False)
     return torch.stack(g["bary"], dim=-1), g["z"], ids >= 0
 
@@ -345,10 +360,9 @@ class _SoftAlphaPack(torch.autograd.Function):
     the exact all-faces backward of K2 (harp_tpu soft_alpha_fast_pack)."""
 
     @staticmethod
-    def forward(ctx, verts_px, soft_sum, bins, faces, cfg):
+    def forward(ctx, verts_px, soft_sum, bins, corners, cfg):
         ctx.save_for_backward(soft_sum)
-        ctx.bins, ctx.faces, ctx.cfg = bins, faces, cfg
-        ctx.num_verts = verts_px.shape[1]
+        ctx.bins, ctx.corners, ctx.cfg = bins, corners, cfg
         return 1.0 - torch.exp(soft_sum)
 
     @staticmethod
@@ -357,14 +371,18 @@ class _SoftAlphaPack(torch.autograd.Function):
 
         (soft_sum,) = ctx.saved_tensors
         g_ssum = (-torch.exp(soft_sum) * g).contiguous()
-        dv = coverage_grad_verts(ctx.bins, g_ssum, ctx.faces, ctx.num_verts, ctx.cfg)
+        dv = coverage_grad_verts(ctx.bins, g_ssum, ctx.corners, ctx.cfg)
         return dv, None, None, None, None
 
 
-def soft_alpha_fast_pack(soft_sum, bins, verts_px, faces, cfg: RasterConfig):
+def soft_alpha_fast_pack(soft_sum, bins, verts_px, corners, cfg: RasterConfig):
     """Compact silhouette alpha (B, A, P); its gradient w.r.t. verts_px is
-    the exact gradient over all within-blur faces (K2)."""
-    return _SoftAlphaPack.apply(verts_px, soft_sum.detach(), bins, faces, cfg)
+    the exact gradient over all within-blur faces (K2). corners: the
+    rasterized face table's corner order (MeshTopology.corners)."""
+    if verts_px.shape[1] != corners.num_rows:
+        raise ValueError(f"verts_px has {verts_px.shape[1]} vertices, the face "
+                         f"table {corners.num_rows}")
+    return _SoftAlphaPack.apply(verts_px, soft_sum.detach(), bins, corners, cfg)
 
 
 # ---------------------------------------------------------------------------

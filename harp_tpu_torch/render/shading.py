@@ -10,39 +10,57 @@ from __future__ import annotations
 
 import torch
 
-from harp_tpu_torch.ops.numerics import safe_normalize
-from harp_tpu_torch.render.rasterizer import as_faces
+from harp_tpu_torch.ops.numerics import jnp_clip, safe_normalize
+from harp_tpu_torch.ops.segment import SegmentOrder, gather_rows
+from harp_tpu_torch.render.rasterizer import as_faces, face_row_order
+
+
+def texel_corner_rows(uv: torch.Tensor, H: int, W: int):
+    """Bilinear weights and the top-left texel of (..., 2) uv on an (H, W)
+    map: (fx (..., 1), fy (..., 1), row (...) = y0 * W + x0 int64)."""
+    x = jnp_clip(uv[..., 0] * (W - 1), 0.0, W - 1)
+    y = jnp_clip((1.0 - uv[..., 1]) * (H - 1), 0.0, H - 1)
+    x0 = torch.clamp(torch.floor(x), 0, W - 1)
+    y0 = torch.clamp(torch.floor(y), 0, H - 1)
+    return (x - x0)[..., None], (y - y0)[..., None], y0.long() * W + x0.long()
 
 
 def sample_texture_bilinear(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Sample an (H, W, C) texture at (..., 2) uv in [0, 1]^2 -> (..., C)."""
-    H, W = tex.shape[0], tex.shape[1]
-    x = torch.clamp(uv[..., 0] * (W - 1), 0.0, W - 1)
-    y = torch.clamp((1.0 - uv[..., 1]) * (H - 1), 0.0, H - 1)
-    x0 = torch.clamp(torch.floor(x), 0, W - 1)
-    y0 = torch.clamp(torch.floor(y), 0, H - 1)
-    fx = (x - x0)[..., None]
-    fy = (y - y0)[..., None]
-    x0i, y0i = x0.long(), y0.long()
-    x1i, y1i = (x0i + 1).clamp(max=W - 1), (y0i + 1).clamp(max=H - 1)
-    t00, t01 = tex[y0i, x0i], tex[y0i, x1i]
-    t10, t11 = tex[y1i, x0i], tex[y1i, x1i]
+    """Sample an (H, W, C) texture at (..., 2) uv in [0, 1]^2 -> (..., C).
+
+    The four corners come from ONE row gather of a corner stack (H*W, 4C),
+    as in harp_tpu: plane (dy, dx) at (y0, x0) is tex[min(y0 + dy, H - 1),
+    min(x0 + dx, W - 1)]. Its backward is one fixed-order segment sum. The
+    edge pad is a concatenation: the backward of a replicate pad adds with
+    atomics on the card. The uv clamp has jnp.clip's derivative (1/2 on a
+    bound)."""
+    H, W, C = tex.shape
+    fx, fy, row = texel_corner_rows(uv, H, W)
+    padded = torch.cat([tex, tex[-1:]], 0)
+    padded = torch.cat([padded, padded[:, -1:]], 1)
+    stack = torch.cat([padded[dy:dy + H, dx:dx + W] for dy in (0, 1) for dx in (0, 1)],
+                      -1).reshape(H * W, 4 * C)
+    rows = gather_rows(stack, SegmentOrder(row, H * W))
+    t00, t01, t10, t11 = rows.reshape(uv.shape[:-1] + (4 * C,)).split(C, -1)
     top = t00 * (1 - fx) + t01 * fx
     bot = t10 * (1 - fx) + t11 * fx
     return top * (1 - fy) + bot * fy
 
 
 def interpolate_packed_attrs(verts, normals_v, faces, verts_uvs, faces_uvs,
-                             ids, bary) -> torch.Tensor:
-    """One-gather interpolation of (position | normal | uv) -> (..., 8)."""
+                             ids, bary, order=None) -> torch.Tensor:
+    """One-gather interpolation of (position | normal | uv) -> (..., 8).
+    order: the face_row_order of ids, when another gather shares its sort."""
     B = verts.shape[0]
     dev = verts.device
     f = as_faces(faces, dev)
+    F = f.shape[0]
     vuv = torch.as_tensor(verts_uvs, dtype=verts.dtype, device=dev)
     fuv = vuv[as_faces(faces_uvs, dev)]  # (F, 3, 2)
     packed = torch.cat([verts[:, f], normals_v[:, f], fuv.expand(B, -1, -1, -1)], -1)
-    safe = ids.long().clamp(min=0).reshape(B, -1, 1).expand(-1, -1, 24)
-    g = torch.gather(packed.reshape(B, -1, 24), 1, safe).reshape(ids.shape + (3, 8))
+    if order is None:
+        order = face_row_order(ids, F)
+    g = gather_rows(packed.reshape(B * F, 24), order).reshape(ids.shape + (3, 8))
     return (g * bary[..., None]).sum(-2)
 
 

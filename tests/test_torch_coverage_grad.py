@@ -16,6 +16,7 @@ from harp_tpu.render.pallas.raster_kernel import pallas_coverage_grad, pallas_ra
 from harp_tpu.render.rasterizer import (
     RasterConfig as JRasterConfig, _pixel_centers, face_pixel_geometry,
 )
+from harp_tpu_torch.ops.segment import TableOrder
 from harp_tpu_torch.render.kernels.raster_kernel import coverage_grad_verts
 from harp_tpu_torch.render.rasterizer import (
     RasterConfig, raster_compact, scatter_tiles, soft_alpha_fast_pack,
@@ -47,7 +48,8 @@ def test_k2_plain_matches_pallas_interpret():
     g = np.random.RandomState(3).normal(size=po["soft_sum"].shape).astype(np.float32)
     want = np.asarray(pallas_coverage_grad(jo["pack"], jnp.asarray(g), jnp.asarray(faces),
                                            verts.shape[1], jcfg, interpret=True))
-    got = coverage_grad_verts(po["bins"], torch.from_numpy(g), faces, verts.shape[1], pcfg)
+    got = coverage_grad_verts(po["bins"], torch.from_numpy(g),
+                              TableOrder.of(faces, verts.shape[1]), pcfg)
     assert np.abs(want).max() > 0
     assert _rel_err(got.numpy(), want) < 2e-4
     # z lanes get exactly zero gradient.
@@ -76,7 +78,8 @@ def test_k2_plain_matches_all_faces_brute_force():
 
     v = torch.from_numpy(verts).requires_grad_(True)
     out = raster_compact(v, faces, pcfg)
-    alpha_c = soft_alpha_fast_pack(out["soft_sum"], out["bins"], v, faces, pcfg)
+    alpha_c = soft_alpha_fast_pack(out["soft_sum"], out["bins"], v,
+                                   TableOrder.of(faces, verts.shape[1]), pcfg)
     alpha = scatter_tiles(alpha_c, out["act_idx"], pcfg, 0.0)
     loss = (alpha - torch.from_numpy(target)).abs().mean()
     loss.backward()

@@ -62,21 +62,23 @@ def _scene():
     masks_er = np.stack([((yy - 15.5) ** 2 + (xx - 14.5 - 2 * b) ** 2 < 36).astype(np.float32)
                          for b in range(n)])
     images = rng.uniform(0, 1, (n, IMG, IMG, 3)).astype(np.float32)
-    # Start from a non-uniform appearance: on the uniform initial maps every
-    # texture-reg difference is exactly 0, where jnp.abs's subgradient is 1
-    # and torch.abs's (the reference's) is 0 (see test_abs_subgradient...).
+    # A non-uniform appearance; the "uniform" case keeps harp_tpu's initial
+    # maps, where every texture-reg difference is exactly 0 and jnp.abs's
+    # subgradient (+1) moves every texel.
     appearance = {"texture": rng.uniform(0.3, 0.9, (TEX, TEX, 3)),
                   "normal_map": rng.normal(0, 0.2, (TEX, TEX, 3)) + [0.0, 0.0, 1.0]}
     return init, images, masks, masks_er, {k: v.astype(np.float32) for k, v in appearance.items()}
 
 
-def _run_both():
+def _run_both(uniform: bool = False):
     jassets = jbuild(uv_size=TEX, density="light")
     assets = assets_from_numpy(jassets)
     jconfig = JHarpConfig(pcf_backend="pallas_interpret", **CFG_KW)
     config = HarpConfig(**CFG_KW)
     jrcfg, rcfg = JRasterConfig(**RCFG_KW), RasterConfig(**RCFG_KW)
     init, images, masks, masks_er, appearance = _scene()
+    if uniform:
+        appearance = {}
 
     jparams, jaux = jinit_params(init, jassets, jconfig)
     jparams.update({k: jnp.asarray(v) for k, v in appearance.items()})
@@ -126,7 +128,34 @@ def both():
     return _run_both()
 
 
+@pytest.fixture(scope="module")
+def both_uniform():
+    return _run_both(uniform=True)
+
+
 def test_step_loss_breakdown_matches(both):
+    _check_loss_breakdown(both)
+
+
+def test_step_gradients_match_per_leaf(both):
+    _check_gradients(both)
+
+
+def test_step_parameters_after_update_match(both):
+    _check_parameters(both)
+
+
+@pytest.mark.parametrize("check", ["losses", "gradients", "parameters"])
+def test_step_from_uniform_initial_maps_matches(both_uniform, check):
+    """The same step from harp_tpu's own uniform initial texture and normal
+    map, where every texture-reg difference is 0 (jnp.abs's tie)."""
+    both = both_uniform
+    assert np.abs(np.asarray(both["jgrads"]["texture"])).max() > 0
+    {"losses": _check_loss_breakdown, "gradients": _check_gradients,
+     "parameters": _check_parameters}[check](both)
+
+
+def _check_loss_breakdown(both):
     assert (both["rout"]["soft_ids"][..., -1] == -1).all(), "K too small for this scene"
     jbr, br = both["jbr"], both["br"]
     assert set(br) == set(jbr)
@@ -138,7 +167,7 @@ def test_step_loss_breakdown_matches(both):
     assert float(br["silhouette"]) > 0 and float(br["photo"]) > 0
 
 
-def test_step_gradients_match_per_leaf(both):
+def _check_gradients(both):
     for k, p in both["params"].items():
         want = np.asarray(both["jgrads"][k])
         got = p.grad.numpy() if p.grad is not None else np.zeros_like(want)
@@ -146,7 +175,7 @@ def test_step_gradients_match_per_leaf(both):
         assert np.abs(got - want).max() <= 1e-3 * scale, k
 
 
-def test_step_parameters_after_update_match(both):
+def _check_parameters(both):
     lr = max(both["config"].lr_pose, both["config"].lr_app)
     for k, p in both["params"].items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(both["jnew"][k]),
@@ -180,12 +209,11 @@ def test_stage_flags_move_only_their_group(both, stage):
         assert params["pose"].grad is not None and params["pose"].grad.abs().max() > 0
 
 
-def test_abs_subgradient_at_zero_differs_from_harp_tpu():
-    """Pins a difference found: on harp_tpu's uniform initial texture every
-    albedo-reg difference is exactly 0, where jnp.abs's subgradient is 1
-    and torch.abs's is 0 (the reference's torch.norm(p=1) too), so harp_tpu
-    moves every uv-masked texel on the first appearance step and the port
-    does not."""
+def test_abs_subgradient_at_zero_matches_harp_tpu():
+    """On harp_tpu's uniform initial texture every albedo-reg difference is
+    exactly 0 (or -0.0), where jnp.abs's subgradient is +1 (torch.abs's is
+    0): harp_tpu moves every uv-masked texel on the first appearance step,
+    and the port, through jnp_abs, does the same."""
     from harp_tpu.losses.texture_reg import albedo_reg as jalbedo_reg
     from harp_tpu_torch.losses.texture_reg import albedo_reg
 
@@ -196,7 +224,7 @@ def test_abs_subgradient_at_zero_differs_from_harp_tpu():
     t = torch.from_numpy(tex).requires_grad_(True)
     albedo_reg(t, offsets=torch.from_numpy(offs)).backward()
     assert np.abs(jg).max() > 0
-    assert not t.grad.any()
+    np.testing.assert_array_equal(t.grad.numpy(), jg)
 
 
 def test_plateau_update_matches_harp_tpu():
