@@ -1,12 +1,15 @@
 """GPU smoke test of harp_tpu_torch. Phases, in order: build the CUDA
-kernels; read the card; hold each kernel against its plain PyTorch version
-on the flagship scene at the step's 18 frames (and the fixed-order ones
-against themselves: two launches must give the same bits), and time each
-there; hold the whole step on the card against the step on the
-CPU (2 frames); drive the fit step (18 frames, 448^2, reference-density
-hand, self-shadow) through the kernels, with launch counts, step times and
-memory, after checking that two train steps from one state give the same
-gradients and parameters bit for bit; profile one step.
+kernels (ptxas registers per kernel); read the card; hold each kernel
+against its plain PyTorch version on the flagship scene at the step's 18
+frames (and the fixed-order ones against themselves: two launches must give
+the same bits), and time each there, with the raster kernels' work (the
+pairs their warp cull kept, by their own ballots, which must equal the
+cull's plain mirror; face counts per tile; resident blocks); hold the whole
+step on the card against the step on the CPU (2 frames); drive the fit
+step (18 frames, 448^2, reference-density hand, self-shadow) through the
+kernels, with launch counts, step times and memory, after checking that
+two train steps from one state give the same gradients and parameters bit
+for bit; profile one step.
 
     python3 chip_smoke.py
 
@@ -30,11 +33,24 @@ import numpy as np
 # (non-tensor-core) operations/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
-# FP32 operations per (pixel, face) pair of the kernels' inner loops,
-# counted from csrc/raster.cu: edge functions, barycentrics, depth (32);
-# the three clipped edge distances and their minimum (62) in soft mode.
+# FP32 operations of the raster kernels. bound_ms_binned counts them as the
+# first csrc/raster.cu did its work, every thread walking every binned face,
+# so that kernel designs are read against one number: per binned (pixel,
+# face) pair, edge functions, barycentrics and depth (32), and in soft mode
+# the three clipped edge distances and their minimum (62).
 OPS_HARD = 32
 OPS_SOFT = 32 + 62
+# bound_ms counts what the redesigned csrc/raster.cu does on this run's data:
+OPS_BOX = 4     # per (warp, binned face): its padded box against the warp's rectangle
+OPS_COVER = 27  # per kept (pixel, face) pair: three edge functions (21), three sign tests (6)
+OPS_DIST = 49   # per kept pair, K1 soft and K2: three clipped edge distances (45),
+                # their minimum (2), the sign and the blur test (2)
+OPS_DEPTH = 9   # per inside pair, K1: three divisions, the depth (5) and its test
+OPS_LOGSUM = 10  # per hit, K1 soft: the coverage log-sum's term
+OPS_GRAD = 81   # per hit, K2: the log-sum's derivative (25), one edge's gradient (56)
+# Inside pairs and hits are counted from the outputs, one inside pair per
+# covered pixel and one hit per soft id: lower bounds, as a pixel may lie
+# inside or within blur of more faces.
 
 B_STEP = 18  # frames of the step, and of the kernel checks and timings
 # The plain raster versions walk face slots 64 at a time at 18 frames: their
@@ -103,8 +119,9 @@ def phase_build():
     from harp_tpu_torch.csrc import build
 
     out = build.build_all()
+    # Each kernel's (mangled) name, then its registers and spills.
     ptxas = [ln.strip() for log in out["logs"].values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": out["seconds"], "ptxas": ptxas})
 
 
@@ -214,6 +231,27 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def raster_work(name: str, args, cfg, blocks_per_sm: int) -> dict:
+    """What raster kernel `name` walks on these inputs: the (pixel, face)
+    pairs its warps kept, from the kernel's own cull ballots (which must
+    equal the plain mirror's, warp_cull_keep), the (warp, face) box tests,
+    each tile's face count, and the blocks resident per SM."""
+    import torch
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+
+    keep = rk.kernel_cull_keep(*args, cfg, name)
+    mirror = rk.warp_cull_keep(*args, cfg)
+    if not torch.equal(keep, mirror):
+        fail(f"{name}: the kernel kept {int(keep.sum())} (slot, warp) pairs, "
+             f"the mirror of its cull {int(mirror.sum())}, "
+             f"{int((keep != mirror).sum())} differ")
+    count = args[3]
+    return dict(pairs_kept=float(keep.sum()) * 32,
+                box_tests=float(count.sum()) * (cfg.tile ** 2 // 32),
+                count_max=int(count.max()), count_mean=float(count.float().mean()),
+                blocks_per_sm=blocks_per_sm)
+
+
 def phase_kernels(dev):
     """Each kernel on the card at the main path's shapes (the flagship scene
     at the step's 18 frames) against its plain version on the same inputs,
@@ -229,6 +267,7 @@ def phase_kernels(dev):
 
     inp = kernel_inputs(dev, B_STEP)
     records = []
+    occupancy = rk.blocks_per_sm(inp["rcfg"].tile)
 
     def rel(got, want):
         return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
@@ -236,6 +275,7 @@ def phase_kernels(dev):
     def plain_cfg(cfg):
         return dataclasses.replace(cfg, face_chunk=PLAIN_FACE_CHUNK)
 
+    hits = 0.0
     for name, key, cfg_key, soft in (("raster_ids_soft", "cam_bins", "rcfg", True),
                                      ("raster_ids_depth", "light_bins", "rcfg_l", False)):
         bins, cfg = inp[key], inp[cfg_key]
@@ -257,11 +297,21 @@ def phase_kernels(dev):
         plain_ms = cuda_ms(lambda: rk.raster_ids_plain(*args, plain_cfg(cfg), soft), 2)
         pairs = float(bins["count_a"].sum()) * cfg.tile * cfg.tile
         outs = [hard] + ([sid, ssum] if soft else [])
-        b_ms, b_by = bound_ms(nbytes(*args, *outs), pairs * (OPS_SOFT if soft else OPS_HARD))
+        work = raster_work(name, args, cfg, occupancy[name])
+        covered = float((hard >= 0).sum())
+        if soft:
+            hits = float((sid >= 0).sum())
+        ops = (work["box_tests"] * OPS_BOX
+               + work["pairs_kept"] * (OPS_COVER + (OPS_DIST if soft else 0))
+               + covered * OPS_DEPTH + (hits * OPS_LOGSUM if soft else 0.0))
+        b_ms, b_by = bound_ms(nbytes(*args, *outs), ops)
+        bb_ms, bb_by = bound_ms(nbytes(*args, *outs), pairs * (OPS_SOFT if soft else OPS_HARD))
         records.append(dict(name=name, route="cuda", source="harp_tpu_torch/csrc/raster.cu",
                             replaces="harp_tpu/render/pallas/raster_kernel.py:65",
                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None, pairs=pairs))
+                            bound_by=b_by, library_ms=None, bound_ms_binned=bb_ms,
+                            bound_by_binned=bb_by, pairs=pairs, covered_pixels=covered,
+                            soft_ids=hits if soft else None, **work))
 
     cb, cfg = inp["cam_bins"], inp["rcfg"]
     corners = inp["assets"].sub_topology.corners
@@ -280,13 +330,21 @@ def phase_kernels(dev):
     ms = cuda_ms(lambda: rk.coverage_grad(*args, cfg), 20)
     plain_ms = cuda_ms(lambda: rk.coverage_grad_plain(*args, plain_cfg(cfg)), 2)
     pairs = float(cb["count_a"].sum()) * cfg.tile ** 2
-    out_bytes = cb["act_idx"].numel() * cfg.cap * 9 * 4
-    b_ms, b_by = bound_ms(nbytes(*args) + out_bytes, pairs * OPS_SOFT)
+    work = raster_work("coverage_grad", args[:5], cfg, occupancy["coverage_grad"])
+    # The kernel writes the tiles' occupied slots; the binned bound counted
+    # the whole (B, A, cap, 9) buffer.
+    out_bytes = float(cb["count_a"].sum()) * 9 * 4
+    ops = (work["box_tests"] * OPS_BOX + work["pairs_kept"] * (OPS_COVER + OPS_DIST)
+           + hits * OPS_GRAD)
+    b_ms, b_by = bound_ms(nbytes(*args) + out_bytes, ops)
+    bb_ms, bb_by = bound_ms(nbytes(*args) + cb["act_idx"].numel() * cfg.cap * 9 * 4,
+                            pairs * OPS_SOFT)
     records.append(dict(name="coverage_grad", route="cuda", source="harp_tpu_torch/csrc/raster.cu",
                         replaces="harp_tpu/render/pallas/raster_kernel.py:364",
                         max_abs_err=float((dv - dv_plain).abs().max()), ms=ms,
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                        rel_err=r, run_to_run_max_abs=spread_k2, pairs=pairs))
+                        bound_ms_binned=bb_ms, bound_by_binned=bb_by, rel_err=r,
+                        run_to_run_max_abs=spread_k2, pairs=pairs, soft_ids=hits, **work))
 
     pargs = (inp["yc"], inp["xc"], inp["upd"], inp["hl"])
     d1 = pk.pcf_scatter(*pargs)

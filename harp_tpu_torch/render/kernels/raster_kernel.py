@@ -8,14 +8,18 @@ Replaces harp_tpu/render/pallas/raster_kernel.py:
 
 What bounds them on this card: operations, not bytes. At the flagship
 shapes a frame's camera pass reads ~0.4 MB of face rows and face lists and
-writes ~3 MB of ids, but evaluates ~94 FP32 operations (32 depth-only) per
-(pixel, face) pair for ~2.9 M pairs, on CUDA cores. The design keeps every
-per-pixel state in registers, the tile's faces in shared memory (staged
-CHUNK at a time: the light pass's cap of 1344 faces does not fit at once),
-and walks each list only as far as the tile's own count, so empty tiles
-cost nothing. The TPU's packed
-(B, A, cap, 16) pre-gather with the face id as a float lane is not carried
-over: each block reads its list straight from the sorted pair runs.
+writes ~3 MB of ids, but every (pixel, binned face) pair costs FP32 edge
+functions (and in soft mode three clipped edge distances) on CUDA cores.
+csrc/raster.cu cuts the pairs and their cost: one block per (tile, frame),
+each warp an 8x4 pixel rectangle that skips the faces whose padded box
+misses it (warp_cull_keep mirrors that test; kernel_cull_keep reads the
+kernel's own ballots), a per-face setup in shared memory, coverage tests by
+sign (quotient_nonneg mirrors them), soft ids in registers where K <= 8 (in
+global memory for a larger K), and the next chunk's face rows prefetched
+with cp.async. The
+TPU's packed (B, A, cap, 16) pre-gather with the face id as a float lane is
+not carried over: each block reads its list straight from the sorted pair
+runs.
 
 K2 keeps the per-(tile, slot) gradient buffer (B, A, cap, 9) of the TPU
 design: a warp-shuffle then shared-memory sum over the tile's pixels in a
@@ -32,6 +36,7 @@ harp_tpu); on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -43,6 +48,8 @@ from harp_tpu_torch.render.rasterizer import (
 
 LAUNCHES = {"raster_ids_soft": 0, "raster_ids_depth": 0, "coverage_grad": 0}
 
+RECT_W, RECT_H = 8, 4  # the pixel rectangle of one warp
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -51,10 +58,13 @@ _F = ctypes.c_float
 def _lib():
     lib = build.load("raster")
     if not getattr(lib, "_typed", False):
-        lib.raster_ids.argtypes = [_P] * 5 + [_I] * 7 + [_F] * 4 + [_I] + [_P] * 4
+        lib.raster_ids.argtypes = ([_P] * 5 + [_I] * 7 + [_F] * 5 + [_I] + [_P] * 3
+                                   + [_I] + [_P] * 2)
         lib.raster_ids.restype = _I
-        lib.coverage_grad.argtypes = [_P] * 6 + [_I] * 7 + [_F] * 4 + [_P] * 2
+        lib.coverage_grad.argtypes = [_P] * 6 + [_I] * 7 + [_F] * 5 + [_P] * 3
         lib.coverage_grad.restype = _I
+        lib.raster_blocks_per_sm.argtypes = [_I, _P]
+        lib.raster_blocks_per_sm.restype = _I
         lib._typed = True
     return lib
 
@@ -62,6 +72,21 @@ def _lib():
 def _consts(cfg: RasterConfig):
     return (f32(cfg.blur_px2), f32(cfg.znear), f32(cfg.ndc_scale**2),
             f32(1.0 / cfg.sigma))
+
+
+def cull_pad(cfg: RasterConfig) -> float:
+    """The kernels' face-box pad: the binning's pad sqrt(blur_px2) + 1e-3
+    (rasterizer.bin_pairs) plus a 1 px margin over float rounding."""
+    return f32(math.sqrt(max(cfg.blur_px2, 0.0)) + 1e-3 + 1.0)
+
+
+def blocks_per_sm(tile: int) -> dict:
+    """Resident blocks per SM of each kernel at tile * tile threads, as the
+    CUDA occupancy calculator gives them (needs the card)."""
+    out = (ctypes.c_int * 3)()
+    build.check(_lib().raster_blocks_per_sm(tile, ctypes.addressof(out)),
+                "raster_blocks_per_sm")
+    return {"raster_ids_soft": out[0], "raster_ids_depth": out[1], "coverage_grad": out[2]}
 
 
 def _check_inputs(fv9, s_face, start_a, count_a, act_idx, cfg: RasterConfig):
@@ -122,15 +147,30 @@ def _tile_geometry(fv9, ids, px, py, cfg: RasterConfig, need_dist: bool):
 # ---------------------------------------------------------------------------
 
 
+def _ballot_words(keep, B, A, cfg: RasterConfig, dev):
+    """keep's data pointer (None for None): the (B, A, ceil(cap / 32),
+    warps) int32 words into which the CUDA kernel writes its cull ballots."""
+    if keep is None:
+        return None
+    shape = (B, A, -(-cfg.cap // 32), cfg.tile * cfg.tile // 32)
+    if (dev.type != "cuda" or keep.dtype != torch.int32 or tuple(keep.shape) != shape
+            or keep.device != dev or not keep.is_contiguous()):
+        raise ValueError(f"keep must be a contiguous int32 {shape} tensor on the CUDA "
+                         f"device of fv9: the ballots are the CUDA kernel's own")
+    return keep.data_ptr()
+
+
 def raster_ids(fv9, s_face, start_a, count_a, act_idx, cfg: RasterConfig,
-               need_soft: bool = True):
+               need_soft: bool = True, keep=None):
     """Per active tile and pixel: (hard (B, A, P) int32, soft (B, A, P, K)
     int32 or None, soft_sum (B, A, P) f32 or None).
 
     fv9 (B, F, 9) screen-space face vertices; s_face (B, n) the sorted pair
     runs; start_a / count_a (B, A) each active tile's run start and length
-    (count already capped); act_idx (B, A) the active tiles."""
+    (count already capped); act_idx (B, A) the active tiles. keep (checks
+    only, see kernel_cull_keep): zeroed words for the warps' cull ballots."""
     B, A = _check_inputs(fv9, s_face, start_a, count_a, act_idx, cfg)
+    words = _ballot_words(keep, B, A, cfg, fv9.device)
     if fv9.device.type == "cpu":
         return raster_ids_plain(fv9, s_face, start_a, count_a, act_idx, cfg, need_soft)
     P, K = cfg.tile * cfg.tile, cfg.faces_per_pixel
@@ -141,8 +181,8 @@ def raster_ids(fv9, s_face, start_a, count_a, act_idx, cfg: RasterConfig,
     rc = _lib().raster_ids(
         fv9.data_ptr(), s_face.data_ptr(), start_a.data_ptr(), count_a.data_ptr(),
         act_idx.data_ptr(), B, fv9.shape[1], s_face.shape[1], A,
-        cfg.image_size // cfg.tile, cfg.tile, K, *_consts(cfg), int(need_soft),
-        hard.data_ptr(), soft.data_ptr(), ssum.data_ptr(),
+        cfg.image_size // cfg.tile, cfg.tile, K, *_consts(cfg), cull_pad(cfg), int(need_soft),
+        hard.data_ptr(), soft.data_ptr(), ssum.data_ptr(), -(-cfg.cap // 32), words,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "raster_ids")
     LAUNCHES["raster_ids_soft" if need_soft else "raster_ids_depth"] += 1
@@ -196,15 +236,94 @@ def raster_ids_plain(fv9, s_face, start_a, count_a, act_idx, cfg: RasterConfig,
 
 
 # ---------------------------------------------------------------------------
+# Plain mirrors of what the kernels decide (tests only; off the main path)
+# ---------------------------------------------------------------------------
+
+
+def warp_of_pixel(cfg: RasterConfig) -> torch.Tensor:
+    """(P,) the warp that owns tile pixel p = row * tile + col: warp w
+    covers the RECT_W x RECT_H rectangle at (w % (tile / RECT_W),
+    w // (tile / RECT_W)) of the tile."""
+    ts = cfg.tile
+    p = torch.arange(ts * ts)
+    return (p // ts // RECT_H) * (ts // RECT_W) + (p % ts) // RECT_W
+
+
+def warp_cull_keep(fv9, s_face, start_a, count_a, act_idx, cfg: RasterConfig):
+    """(B, A, cap, W) bool: list slot s of active tile a is evaluated by
+    warp w. The kernels' test in their float32 expressions: the face is
+    valid and its box, padded by cull_pad, touches the warp's rectangle of
+    pixel centres (ends included). Empty slots are False."""
+    B, A = act_idx.shape
+    ts, nt = cfg.tile, cfg.image_size // cfg.tile
+    ids = _slot_faces(s_face, start_a, count_a, torch.arange(cfg.cap, device=fv9.device))
+    v = torch.gather(fv9, 1, ids.clamp(min=0).reshape(B, -1, 1).expand(-1, -1, 9))
+    v = v.reshape(B, A, cfg.cap, 1, 9)
+    x0, y0, z0, x1, y1, z1, x2, y2, z2 = v.unbind(-1)
+    area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    znear = f32(cfg.znear)
+    valid = ((torch.abs(area2) > f32(1e-10)) & (z0 > znear) & (z1 > znear)
+             & (z2 > znear) & (ids >= 0)[..., None])
+    pad = cull_pad(cfg)
+    bx0 = torch.minimum(torch.minimum(x0, x1), x2) - pad
+    bx1 = torch.maximum(torch.maximum(x0, x1), x2) + pad
+    by0 = torch.minimum(torch.minimum(y0, y1), y2) - pad
+    by1 = torch.maximum(torch.maximum(y0, y1), y2) + pad
+    rpr = ts // RECT_W
+    w = torch.arange(ts * ts // 32, device=fv9.device)
+    t = act_idx.long()[..., None]  # (B, A, 1)
+    cx = (t % nt) * ts + (w % rpr) * RECT_W  # (B, A, W) first column
+    cy = (t // nt) * ts + (w // rpr) * RECT_H
+    rx0, rx1 = (cx.float() + 0.5)[:, :, None], ((cx + RECT_W - 1).float() + 0.5)[:, :, None]
+    ry0, ry1 = (cy.float() + 0.5)[:, :, None], ((cy + RECT_H - 1).float() + 0.5)[:, :, None]
+    return valid & (bx0 <= rx1) & (bx1 >= rx0) & (by0 <= ry1) & (by1 >= ry0)
+
+
+def kernel_cull_keep(fv9, s_face, start_a, count_a, act_idx, cfg: RasterConfig,
+                     kernel: str):
+    """What the CUDA kernel `kernel` ("raster_ids_soft", "raster_ids_depth"
+    or "coverage_grad") kept, from the ballots it writes when asked: (B, A,
+    cap, W) bool in warp_cull_keep's layout. One launch of that kernel
+    (counted); CUDA tensors only."""
+    B, A = act_idx.shape
+    W = cfg.tile * cfg.tile // 32
+    words = torch.zeros(B, A, -(-cfg.cap // 32), W, dtype=torch.int32, device=fv9.device)
+    args = (fv9, s_face, start_a, count_a, act_idx)
+    if kernel == "coverage_grad":
+        g = torch.zeros(B, A, cfg.tile * cfg.tile, device=fv9.device)
+        coverage_grad(*args, g, cfg, keep=words)
+    elif kernel in ("raster_ids_soft", "raster_ids_depth"):
+        raster_ids(*args, cfg, kernel == "raster_ids_soft", keep=words)
+    else:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    bits = (words[..., None] >> torch.arange(32, device=fv9.device, dtype=torch.int32)) & 1
+    return bits.transpose(3, 4).reshape(B, A, -1, W)[:, :, :cfg.cap].bool()
+
+
+def quotient_nonneg(w: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
+    """w / denom >= 0 decided as the kernels decide it, without dividing
+    (raster.cu quot_nonneg): w * sign(denom) >= -RD(|denom| * 2^-150).
+    Float32 w and finite nonzero float32 denom."""
+    x = denom.double().abs() * 2.0**-150  # exact
+    t = x.float()
+    t = torch.where(t.double() > x, torch.nextafter(t, torch.zeros_like(t)), t)
+    sgn = torch.where(denom > 0, 1.0, -1.0)
+    return w * sgn >= -t
+
+
+# ---------------------------------------------------------------------------
 # K2: coverage_grad
 # ---------------------------------------------------------------------------
 
 
-def coverage_grad(fv9, s_face, start_a, count_a, act_idx, g, cfg: RasterConfig):
+def coverage_grad(fv9, s_face, start_a, count_a, act_idx, g, cfg: RasterConfig,
+                  keep=None):
     """Per (frame, active tile, slot) the 9 screen-coordinate gradients of
     sum over the tile's pixels of g * coverage log-sum: (B, A, cap, 9) f32.
-    Slots at or beyond a tile's count are left unwritten."""
+    Slots at or beyond a tile's count are left unwritten. keep: as in
+    raster_ids."""
     B, A = _check_inputs(fv9, s_face, start_a, count_a, act_idx, cfg)
+    words = _ballot_words(keep, B, A, cfg, fv9.device)
     P = cfg.tile * cfg.tile
     if g.dtype != torch.float32 or tuple(g.shape) != (B, A, P) or g.device != fv9.device:
         raise ValueError(f"g must be float32 {(B, A, P)} on {fv9.device}")
@@ -217,8 +336,8 @@ def coverage_grad(fv9, s_face, start_a, count_a, act_idx, g, cfg: RasterConfig):
     rc = _lib().coverage_grad(
         fv9.data_ptr(), s_face.data_ptr(), start_a.data_ptr(), count_a.data_ptr(),
         act_idx.data_ptr(), g.data_ptr(), B, fv9.shape[1], s_face.shape[1], A,
-        cfg.image_size // cfg.tile, cfg.tile, cfg.cap, *_consts(cfg),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        cfg.image_size // cfg.tile, cfg.tile, cfg.cap, *_consts(cfg), cull_pad(cfg),
+        out.data_ptr(), words, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "coverage_grad")
     LAUNCHES["coverage_grad"] += 1
     return out

@@ -1,8 +1,8 @@
 """harp_tpu_torch's CUDA kernels vs their plain PyTorch versions on the
-test-suite scenes (tile 8: two warps a block). Needs a CUDA card; run on
-one with  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+test-suite scenes (tile 8: two warps a block; tile 16: eight). Needs a CUDA
+card; run on one with  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 (tests/conftest.py imports JAX). Ids must be
-equal; float outputs within the tolerances chip_smoke.py uses. The
+equal; float outputs within the tolerances chip_smoke.py uses. K2, the
 segment sum, K3 and the whole train step must give the same bits twice."""
 
 import numpy as np
@@ -13,6 +13,7 @@ from harp_tpu_torch.ops import segment as sg
 from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
 from harp_tpu_torch.render.kernels import raster_kernel as rk
 from harp_tpu_torch.render.rasterizer import RasterConfig, raster_compact
+from test_torch_raster_cull import adversarial_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -35,17 +36,38 @@ def _scene(seed, n, B=2, spread=4.0):
     return verts, np.arange(n * 3).reshape(n, 3).astype(np.int32)
 
 
+# name: (scene of a config, cap). "busy" and "dense" give tiles of more than
+# one 128-face chunk at tile 16 (and "dense" at tile 8), with faces across
+# warp borders; "adversarial" is tests/test_torch_raster_cull.py's scene.
+SCENES = {
+    "sparse": (lambda cfg: _scene(5, 30, spread=6.0), 64),
+    "busy": (lambda cfg: _scene(5, 400, spread=6.0), 448),
+    "dense": (lambda cfg: _scene(9, 1500, spread=3.0), 1344),
+    "adversarial": (adversarial_scene, 1024),
+}
+
+
 @pytest.mark.parametrize("need_soft", [True, False])
-@pytest.mark.parametrize("n,cap", [(30, 64), (400, 448)])
-def test_raster_kernels_match_plain(cuda, need_soft, n, cap):
-    verts, faces = _scene(5, n, spread=6.0)
-    cfg = RasterConfig(image_size=32, tile=8, cap=cap, faces_per_pixel=8, active_fraction=0.75)
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_raster_kernels_match_plain(cuda, need_soft, tile, scene):
+    make, cap = SCENES[scene]
+    cfg = RasterConfig(image_size=32, tile=tile, cap=cap, faces_per_pixel=8, active_fraction=0.75)
+    verts, faces = make(cfg)
     out = raster_compact(torch.from_numpy(verts).to(cuda), faces, cfg, need_soft=need_soft)
     b = out["bins"]
     args = (b["fv9"], b["s_face"], b["start_a"], b["count_a"], b["act_idx"])
+    assert int(b["count_a"].max()) <= cap
+    if scene == "dense" or (scene == "busy" and tile == 16):
+        assert int(b["count_a"].max()) > 128
     hard, soft, ssum = rk.raster_ids(*args, cfg, need_soft)
     hard_p, soft_p, ssum_p = rk.raster_ids_plain(*args, cfg, need_soft)
     assert torch.equal(hard, hard_p)
+    # The kernels' own ballots: exactly the (slot, warp) pairs of the mirror.
+    mirror = rk.warp_cull_keep(*args, cfg)
+    kernels = ["raster_ids_soft", "coverage_grad"] if need_soft else ["raster_ids_depth"]
+    for name in kernels:
+        assert torch.equal(rk.kernel_cull_keep(*args, cfg, name), mirror), name
     if need_soft:
         assert torch.equal(soft, soft_p)
         torch.testing.assert_close(ssum, ssum_p, rtol=1e-5, atol=1e-6)
@@ -54,6 +76,26 @@ def test_raster_kernels_match_plain(cuda, need_soft, n, cap):
         dv = rk.coverage_grad_verts(b, g, corners, cfg)
         dv_p = rk.slot_grads_to_verts(b, rk.coverage_grad_plain(*args, g, cfg), corners)
         assert (dv - dv_p).abs().max() <= 1e-4 * dv_p.abs().max()
+        assert torch.equal(dv, rk.coverage_grad_verts(b, g, corners, cfg))
+
+
+@pytest.mark.parametrize("tile", [8, 16])
+def test_raster_ids_many_soft_ids_match_plain(cuda, tile):
+    """faces_per_pixel 50 (HarpConfig.reference_exact) takes the kernel's
+    global-memory soft-id path. A 3 px blur over the dense scene gives
+    pixels with fewer than 50 hits, more than 8, and more than 50."""
+    cfg = RasterConfig(image_size=32, tile=tile, cap=1344, faces_per_pixel=50,
+                       active_fraction=1.0, blur_radius=9.0 * (2 / 32) ** 2)
+    verts, faces = _scene(9, 1500, spread=3.0)
+    b = raster_compact(torch.from_numpy(verts).to(cuda), faces, cfg)["bins"]
+    args = (b["fv9"], b["s_face"], b["start_a"], b["count_a"], b["act_idx"])
+    hard, soft, ssum = rk.raster_ids(*args, cfg)
+    hard_p, soft_p, ssum_p = rk.raster_ids_plain(*args, cfg)
+    n_ids = (soft_p >= 0).sum(-1)
+    assert int(n_ids.max()) == 50 and bool(((n_ids > 8) & (n_ids < 50)).any())
+    assert torch.equal(hard, hard_p)
+    assert torch.equal(soft, soft_p)
+    torch.testing.assert_close(ssum, ssum_p, rtol=1e-5, atol=1e-6)
 
 
 def test_pcf_scatter_kernel_matches_plain(cuda):
