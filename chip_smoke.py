@@ -2,14 +2,16 @@
 kernels (ptxas registers per kernel); read the card; hold each kernel
 against its plain PyTorch version on the flagship scene at the step's 18
 frames (and the fixed-order ones against themselves: two launches must give
-the same bits), and time each there, with the raster kernels' work (the
+the same bits; K3 also bit for bit against its fixed-point mirror), and
+time each there, with the raster kernels' work (the
 pairs their warp cull kept, by their own ballots, which must equal the
 cull's plain mirror; face counts per tile; resident blocks); hold the whole
 step on the card against the step on the CPU (2 frames); drive the fit
 step (18 frames, 448^2, reference-density hand, self-shadow) through the
 kernels, with launch counts, step times and memory, after checking that
 two train steps from one state give the same gradients and parameters bit
-for bit; profile one step.
+for bit; profile one step; time segment_sum at every call site of one
+stage-2 step.
 
     python3 chip_smoke.py
 
@@ -346,11 +348,17 @@ def phase_kernels(dev):
                         bound_ms_binned=bb_ms, bound_by_binned=bb_by, rel_err=r,
                         run_to_run_max_abs=spread_k2, pairs=pairs, soft_ids=hits, **work))
 
+    # K3 sums in fixed point: bit for bit its int64 mirror, within rtol 1e-5
+    # the float32 plain version.
     pargs = (inp["yc"], inp["xc"], inp["upd"], inp["hl"])
     d1 = pk.pcf_scatter(*pargs)
     d2 = pk.pcf_scatter(*pargs)
     dp = pk.pcf_scatter_plain(*pargs)
+    dfix = pk.pcf_scatter_fixed_plain(*pargs)
     torch.cuda.synchronize()
+    if not torch.equal(d1.view(torch.int32), dfix.view(torch.int32)):
+        fail(f"pcf_scatter: {int((d1 != dfix).sum())} texels differ from the fixed-point "
+             f"mirror, by up to {float((d1 - dfix).abs().max())}")
     r = rel(d1, dp)
     if not r < 1e-5:
         fail(f"pcf_scatter: dpad rel err {r} vs the plain version")
@@ -368,7 +376,13 @@ def phase_kernels(dev):
                         replaces="harp_tpu/render/pallas/pcf_grad_kernel.py:49",
                         max_abs_err=float((d1 - dp).abs().max()), ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, rel_err=r,
-                        run_to_run_max_abs=spread_k3, nonzero_taps=int((upd != 0).sum())))
+                        mirror_bit_equal=True, run_to_run_max_abs=spread_k3,
+                        nonzero_taps=int((upd != 0).sum()),
+                        longest_centre_run=int(torch.unique(
+                            (torch.arange(upd.shape[0], device=dev)[:, None] * (inp["hl"] + 4)
+                             + inp["yc"]) * (inp["hl"] + 4) + inp["xc"],
+                            return_counts=True)[1].max()),
+                        **pk.launch_layout(upd.shape[0], upd.shape[1], inp["hl"])))
 
     # The plain segment sum is held in float64 on the same inputs: in float32
     # its atomics add the 239k-entry background run in a varying order, with
@@ -401,7 +415,8 @@ def phase_kernels(dev):
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                         rel_err=r, max_abs_err_vs_f32_plain=float((s1 - sp).abs().max()),
                         run_to_run_max_abs=spread_ss, sort_ms=sort_ms, entries=M,
-                        channels=C, rows=order.num_rows, longest_run=int(counts.max())))
+                        channels=C, rows=order.num_rows, longest_run=int(counts.max()),
+                        blocks_per_sm=sg.blocks_per_sm()))
     for rec in records:
         emit(dict(phase="kernel", **rec))
     return records
@@ -530,15 +545,15 @@ def phase_step(dev):
     n2, n1, n3 = (plan.count(f) for f in ((True, True), (True, False), (False, True)))
     # K1 soft and K2 run in stages 1 and 2; K1 depth-only for the light in
     # stages 2 and 3 and for the camera in stage 3; K3 in stages 2 and 3.
-    # segment_sum per step: nine in stages 2 and 3 (the vertex normals of
+    # segment_sum per step: eight in stages 2 and 3 (the vertex normals of
     # the displacement and of the shading, the face-row gathers of the
     # camera and the light, the packed attributes, the texture, the two
-    # texture regularisers, K3's centre sums), one in stage 1 (the
-    # displacement's vertex normals), and one more wherever K2 runs (its
-    # vertex scatter).
+    # texture regularisers), one in stage 1 (the displacement's vertex
+    # normals), and one more wherever K2 runs (its vertex scatter). K3 sums
+    # its taps in fixed point in its own kernel and calls no segment_sum.
     expected = {"raster_ids_soft": n2 + n1, "raster_ids_depth": n2 + 2 * n3,
                 "coverage_grad": n2 + n1, "pcf_scatter": n2 + n3,
-                "segment_sum": 9 * (n2 + n3) + n1 + (n2 + n1)}
+                "segment_sum": 8 * (n2 + n3) + n1 + (n2 + n1)}
     if launches != expected:
         fail(f"launch counts {launches}, expected {expected}")
     step_ms = float(np.median(times[3:n2])) * 1e3  # the first steps warm up
@@ -551,9 +566,60 @@ def phase_step(dev):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "launches": launches, "grad_run_to_run_max_abs": spread,
           "param_run_to_run_max_abs": pspread})
-    phase_profile(lambda: step(aux, fids, images, masks, masks_er, ref_verts,
-                               coarse_on=True, app_on=True, generator=gen))
+    def stage2():
+        step(aux, fids, images, masks, masks_er, ref_verts, coarse_on=True, app_on=True,
+             generator=gen)
+
+    phase_profile(stage2)
+    phase_segment_sum_shapes(stage2, 8 + 1)  # a stage-2 step's count, as above
     return launches
+
+
+def phase_segment_sum_shapes(run_step, per_step: int) -> None:
+    """segment_sum at every call site of one stage-2 step: each call's
+    (M, C, R, longest run of one key) with its device time (torch.profiler,
+    its kernels over 10 launches on the step's own inputs), the time of
+    back-to-back calls (CUDA events; the host's dispatch where that is
+    longer) and the bound, and their sums."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from harp_tpu_torch.ops import segment as sg
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+
+    calls, original = [], sg.segment_sum
+
+    def recording(values, order):
+        calls.append((values, order))
+        return original(values, order)
+
+    sg.segment_sum = rk.segment_sum = recording  # the two names the step calls it by
+    try:
+        run_step()
+        torch.cuda.synchronize()
+    finally:
+        sg.segment_sum = rk.segment_sum = original
+    if len(calls) != per_step:
+        fail(f"segment_sum_shapes: {len(calls)} calls in a stage-2 step, expected {per_step}")
+    rows = []
+    for values, order in calls:
+        (M, C), R = values.shape, order.num_rows
+        events_ms = cuda_ms(lambda: original(values, order), 20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                original(values, order)
+            torch.cuda.synchronize()
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / 1e3 / 10
+        b_ms, b_by = bound_ms(M * (C + 2) * 4 + R * C * 4, float(M * C))
+        longest = int(torch.bincount(order.key, minlength=R).max())
+        rows.append(dict(M=M, C=C, R=R, longest_run=longest, device_ms=device_ms,
+                         events_ms=events_ms, bound_ms=b_ms, bound_by=b_by))
+    device_sum = sum(r["device_ms"] for r in rows)
+    bound_sum = sum(r["bound_ms"] for r in rows)
+    emit({"phase": "segment_sum_shapes", "calls": rows, "device_ms_sum": device_sum,
+          "events_ms_sum": sum(r["events_ms"] for r in rows), "bound_ms_sum": bound_sum,
+          "gap_ms_sum": device_sum - bound_sum})
 
 
 def phase_profile(run_step) -> None:

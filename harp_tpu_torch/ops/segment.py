@@ -46,8 +46,19 @@ def _lib():
         lib.segment_sum.restype = I
         lib.segment_sum_chunk.argtypes = []
         lib.segment_sum_chunk.restype = I
+        lib.segment_sum_blocks_per_sm.argtypes = [P]
+        lib.segment_sum_blocks_per_sm.restype = I
         lib._typed = True
     return lib
+
+
+def blocks_per_sm() -> dict:
+    """Resident blocks per SM of the chunk kernel at the widths the step
+    uses, C = 3, 9 and 24 (the CUDA occupancy calculator; needs the card)."""
+    out = (ctypes.c_int * 3)()
+    build.check(_lib().segment_sum_blocks_per_sm(ctypes.addressof(out)),
+                "segment_sum_blocks_per_sm")
+    return {3: out[0], 9: out[1], 24: out[2]}
 
 
 class SegmentOrder:
@@ -120,12 +131,14 @@ def segment_sum(values: torch.Tensor, order: SegmentOrder) -> torch.Tensor:
         raise ValueError("segment_sum on the card takes contiguous float32 values")
     C, R = values.shape[1], order.num_rows
     dev = values.device
-    if M == 0:  # nothing to launch for
+    if M == 0 or C == 0:  # nothing to launch for
         return torch.zeros(R, C, dtype=torch.float32, device=dev)
+    if R * C >= 2**31:
+        raise ValueError(f"segment_sum on the card writes fewer than 2^31 values, got {R} x {C}")
     skey, perm = order.sorted()
     lib = _lib()
     nchunks = math.ceil(M / lib.segment_sum_chunk())
-    out = torch.empty(R, C, dtype=torch.float32, device=dev)
+    out = torch.empty(R, C, dtype=torch.float32, device=dev)  # the kernel writes every row
     head = torch.empty(nchunks, C, dtype=torch.float32, device=dev)
     tail = torch.empty(nchunks, C, dtype=torch.float32, device=dev)
     rc = lib.segment_sum(skey.data_ptr(), perm.data_ptr(), values.data_ptr(), M, C, R,

@@ -98,21 +98,65 @@ def test_raster_ids_many_soft_ids_match_plain(cuda, tile):
     torch.testing.assert_close(ssum, ssum_p, rtol=1e-5, atol=1e-6)
 
 
-def test_pcf_scatter_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(7)
-    B, Hl, N = 2, 28, 300
+def _pcf_inputs(cuda, seed, B, Hl, N):
+    rng = np.random.default_rng(seed)
     yc = torch.from_numpy(rng.integers(1, Hl + 3, size=(B, N)).astype(np.int32)).to(cuda)
     xc = torch.from_numpy(rng.integers(1, Hl + 3, size=(B, N)).astype(np.int32)).to(cuda)
     upd = torch.from_numpy(rng.normal(size=(B, N, 9)).astype(np.float32)).to(cuda)
-    yc[0, :100] = 1  # a run of clamped centres, as the background pixels make
+    return yc, xc, upd
+
+
+def _bits(x):
+    return x.view(torch.int32)  # NaN != NaN: compare the bits
+
+
+@pytest.mark.parametrize("Hl,N", [(28, 300), (224, 5000)])
+def test_pcf_scatter_kernel_matches_plain(cuda, Hl, N):
+    """Bit for bit the fixed-point mirror, within rtol 1e-5 the float32
+    plain version, and the same bits twice. N is not a multiple of 256;
+    a run of clamped centres, as the background pixels make, fills whole
+    warps and part of one."""
+    yc, xc, upd = _pcf_inputs(cuda, 7, 2, Hl, N)
+    yc[0, :100] = 1
     xc[0, :100] = 1
+    yc[1, 40:75] = Hl + 2
+    xc[1, 40:75] = Hl + 2
+    before = pk.LAUNCHES["pcf_scatter"]
     got = pk.pcf_scatter(yc, xc, upd, Hl)
-    want = pk.pcf_scatter_plain(yc, xc, upd, Hl)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert torch.equal(got, pk.pcf_scatter(yc, xc, upd, Hl))  # no atomics: same bits
+    assert pk.LAUNCHES["pcf_scatter"] == before + 1
+    assert torch.equal(_bits(got), _bits(pk.pcf_scatter_fixed_plain(yc, xc, upd, Hl)))
+    torch.testing.assert_close(got, pk.pcf_scatter_plain(yc, xc, upd, Hl), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, pk.pcf_scatter(yc, xc, upd, Hl))
 
 
-@pytest.mark.parametrize("C", [1, 9, 24])
+@pytest.mark.parametrize("case", ["zeros", "one_huge", "denormals", "ties", "non_finite"])
+def test_pcf_scatter_kernel_scale_rule_matches_mirror(cuda, case):
+    """The kernel's rounding from the float's bits equals the mirror's
+    rint in double, half to even at exact ties, on every scale."""
+    yc, xc, upd = _pcf_inputs(cuda, 3, 2, 28, 700)
+    if case == "zeros":
+        upd.zero_()
+    elif case == "one_huge":
+        upd[0, 17, 4] = 1e30 * upd.abs().max()
+    elif case == "denormals":
+        upd = (upd.double() * 1e-40).float()
+    elif case == "ties":  # max 2^10, 9N = 6300 <= 2^13: s = 38, odd * 2^-39 -> k + 1/2
+        odd = (torch.arange(upd.numel(), device=cuda) % 401 - 200) * 2 + 1
+        upd = (odd.double() * 2.0 ** -39).float().reshape(upd.shape)
+        upd[0, 0, 0] = 1024.0
+        assert pk.fixed_point_shift(1024.0, 700) == 38
+    else:
+        yc[0, :2], xc[0, :2] = 9, 9
+        upd[0, 0, 4], upd[0, 1, 4], upd[1, 3, 0], upd[1, 9, :] = np.inf, -np.inf, np.nan, -np.inf
+    got = pk.pcf_scatter(yc, xc, upd, 28)
+    assert torch.equal(_bits(got), _bits(pk.pcf_scatter_fixed_plain(yc, xc, upd, 28)))
+    if case == "zeros":
+        assert not got.any()
+    if case == "non_finite":
+        assert bool(torch.isnan(got[0, 9, 9])) and int(torch.isinf(got).sum()) >= 8
+
+
+@pytest.mark.parametrize("C", [1, 3, 5, 9, 24, 37])
 def test_segment_sum_kernel_matches_plain_and_repeats_bit_equal(cuda, C):
     """Unsorted keys, empty rows and one run of 10^5 entries (~400 chunks),
     against a float64 sum: each row within 1e-5 of its sum of |values|. That
@@ -142,6 +186,46 @@ def test_segment_sum_kernel_matches_plain_and_repeats_bit_equal(cuda, C):
     empty = sg.SegmentOrder(torch.zeros(0, dtype=torch.int64, device=cuda), R)
     assert not sg.segment_sum(vals[:0], empty).any()
     assert sg.LAUNCHES["segment_sum"] == before + 2
+
+
+def _dirty_allocator(cuda, nbytes):
+    """Leave NaNs in the caching allocator's next block of this size, so a
+    row the kernel fails to write shows."""
+    junk = torch.full((nbytes // 4,), float("nan"), device=cuda)
+    del junk
+
+
+@pytest.mark.parametrize("C", [1, 3, 5, 9, 24, 37])
+@pytest.mark.parametrize("M", [1, 200, 256, 700])
+def test_segment_sum_kernel_writes_every_row(cuda, C, M):
+    """The kernel zero-fills the empty rows itself (no memset of out): rows
+    below the first key, between keys and above the last, with M below,
+    at and above one chunk, and a run across a chunk edge that ends on the
+    next. Within the
+    float64 bound of the test above; bit-equal twice."""
+    rng = np.random.default_rng(M * 100 + C)
+    R = 3 * M + 40
+    key = np.sort(rng.integers(10, R - 10, M))
+    if M > 256:  # a run across the first chunk edge that ends on the second
+        key[200:512] = key[200]
+        key[512:] = np.maximum(key[512:], key[200] + 2)
+    key = np.where(key % 4 == 1, key + 1, key)  # rows 1 mod 4 stay empty
+    key = rng.permutation(key)
+    order = sg.SegmentOrder(torch.from_numpy(key).to(cuda), R)
+    vals = torch.from_numpy(rng.normal(size=(M, C)).astype(np.float32)).to(cuda)
+    order.sorted()
+    _dirty_allocator(cuda, R * C * 4)
+    got = sg.segment_sum(vals, order)
+    _dirty_allocator(cuda, R * C * 4)
+    again = sg.segment_sum(vals, order)
+    want = sg.segment_sum_plain(vals.double(), order)
+    bound = 1e-5 * sg.segment_sum_plain(vals.double().abs(), order)
+    empty = torch.ones(R, dtype=torch.bool, device=cuda)
+    empty[order.key] = False
+    assert bool(empty[:10].all() and empty[-9:].all() and empty.sum() > 20)
+    assert not got[empty].any()
+    assert ((got.double() - want).abs() <= bound).all()
+    assert torch.equal(got, again)
 
 
 def test_train_step_gradients_repeat_bit_equal(cuda):
