@@ -6,12 +6,16 @@ the same bits; K3 also bit for bit against its fixed-point mirror), and
 time each there, with the raster kernels' work (the
 pairs their warp cull kept, by their own ballots, which must equal the
 cull's plain mirror; face counts per tile; resident blocks); hold the whole
-step on the card against the step on the CPU (2 frames); drive the fit
+step on the card against the step on the CPU (2 frames); check K3's fixed
+point on the flagship step's own tap updates (pcf_rounding); drive the fit
 step (18 frames, 448^2, reference-density hand, self-shadow) through the
-kernels, with launch counts, step times and memory, after checking that
-two train steps from one state give the same gradients and parameters bit
-for bit; profile one step; time segment_sum at every call site of one
-stage-2 step.
+kernels without VGG and then with it (bf16, cached GT pyramids), each with
+launch counts, step times, memory and one profiled step, after checking
+that two train steps from one state give the same gradients and
+parameters bit for bit; time segment_sum at every call site of one
+stage-2 step; time the VGG step in float32 with TF32 off and on; run
+fit_sequence (stages 2 / 2 / 2) twice from one seed, which must give the
+same bits, and evaluate_sequence on it.
 
     python3 chip_smoke.py
 
@@ -474,19 +478,11 @@ def phase_vs_cpu(dev):
           "grad_rel_err": rel, "card_s": tg, "cpu_s": tc})
 
 
-def phase_step(dev):
-    """The fit step at 18 frames: the synthetic sequence (rendered by the
-    port); two stage-2 train steps from one state, whose gradients and
-    updated parameters must be the same bits; then stage-2 steps, one
-    stage-1 and one stage-3 step."""
+def flagship_sequence(dev) -> dict:
+    """The flagship fit's 18-frame synthetic sequence, rendered by the port
+    (K1) and checked: finite images, masks covering part of each frame."""
     import torch
     from harp_tpu_torch.data.synthetic import make_synthetic_sequence
-    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, make_train_step
-    from harp_tpu_torch.fit.params import init_params
-    from harp_tpu_torch.ops import segment as sg
-    from harp_tpu_torch.render import pipeline
-    from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
-    from harp_tpu_torch.render.kernels import raster_kernel as rk
 
     assets, config, rcfg, _ = flagship(B_STEP, dev)
     t0 = time.perf_counter()
@@ -498,81 +494,359 @@ def phase_step(dev):
     if not (images.shape == (B_STEP, img, img, 3) and torch.isfinite(images).all()
             and 0 < float(masks.mean()) < 0.5):
         fail("synthetic sequence: bad images or masks")
+    return dict(assets=assets, config=config, rcfg=rcfg, images=images, masks=masks,
+                masks_er=masks_er, init=init, gt_render_s=gt_s)
+
+
+def reset_launches() -> None:
+    from harp_tpu_torch.ops import segment as sg
+    from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+
+    for d in (rk.LAUNCHES, pk.LAUNCHES, sg.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def read_launches() -> dict:
+    from harp_tpu_torch.ops import segment as sg
+    from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+
+    return dict(rk.LAUNCHES, **pk.LAUNCHES, **sg.LAUNCHES)
+
+
+def expected_launches(n2: int, n1: int, n3: int) -> dict:
+    """Kernel launches of n2 stage-2, n1 stage-1 and n3 stage-3 train steps.
+    K1 soft and K2 run in stages 1 and 2; K1 depth-only for the light in
+    stages 2 and 3 and for the camera in stage 3; K3 in stages 2 and 3.
+    segment_sum per step: eight in stages 2 and 3 (the vertex normals of
+    the displacement and of the shading, the face-row gathers of the
+    camera and the light, the packed attributes, the texture, the two
+    texture regularisers), one in stage 1 (the displacement's vertex
+    normals), and one more wherever K2 runs (its vertex scatter). K3 sums
+    its taps in fixed point in its own kernel and calls no segment_sum; the
+    VGG term launches none of them."""
+    return {"raster_ids_soft": n2 + n1, "raster_ids_depth": n2 + 2 * n3,
+            "coverage_grad": n2 + n1, "pcf_scatter": n2 + n3,
+            "segment_sum": 8 * (n2 + n3) + n1 + (n2 + n1)}
+
+
+def vgg_setup(seq, dev, compute_dtype: str):
+    """(config with the VGG term on, the network, aux with the cached GT
+    pyramids of the masked frames, seconds to cache them)."""
+    import dataclasses
+
+    import torch
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.losses.perceptual import Vgg16Features, precompute_slices
+
+    config = dataclasses.replace(seq["config"], w_vgg=1.0, vgg_compute_dtype=compute_dtype)
+    vgg = Vgg16Features.create(compute_dtype=compute_dtype, device=dev)
+    _, aux = init_params(seq["init"], seq["assets"], config, device=dev)
+    t0 = time.perf_counter()
+    aux["vgg_gt"] = precompute_slices(vgg, seq["images"] * seq["masks_er"][..., None],
+                                      chunk=config.vgg_chunk)
+    torch.cuda.synchronize()
+    return config, vgg, aux, time.perf_counter() - t0
+
+
+def phase_step(dev, seq, vgg_dtype: str | None = None):
+    """The fit step at 18 frames, 448^2 (without VGG, or with it in
+    vgg_dtype from the cached GT pyramids): two stage-2 train steps from
+    one state, whose gradients and updated parameters must be the same
+    bits; then stage-2, stage-1 and stage-3 steps with launch counts,
+    times and peak memory; one profiled stage-2 step. The texture-reg
+    offsets come from the fit's key stream, as in fit_sequence."""
+    import torch
+    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, _key_stream_np, make_train_step
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.render import pipeline
+
+    label = "vgg_step" if vgg_dtype else "step"
+    assets, config, rcfg = seq["assets"], seq["config"], seq["rcfg"]
+    images, masks, masks_er, init = seq["images"], seq["masks"], seq["masks_er"], seq["init"]
+    vgg, extra = None, {}
     params, aux = init_params(init, assets, config, device=dev)
+    if vgg_dtype:
+        config, vgg, aux, extra["gt_cache_s"] = vgg_setup(seq, dev, vgg_dtype)
     fids = torch.arange(B_STEP, device=dev)
     with torch.no_grad():
         ref_verts = pipeline.mesh_forward(params, fids[:1], assets, config)[0][0]
-    gen = torch.Generator(device=dev)
+    keys = _key_stream_np(0, 16)
 
     # Run-to-run spread: two stage-2 train steps from one state.
     runs = []
     for _ in range(2):
         ps = {k: p.detach().clone().requires_grad_(True) for k, p in params.items()}
-        make_train_step(assets, config, rcfg, ps, device=dev)(
+        make_train_step(assets, config, rcfg, ps, device=dev, vgg=vgg)(
             aux, fids, images, masks, masks_er, ref_verts, coarse_on=True, app_on=True,
-            generator=gen.manual_seed(1))
+            key=keys[0])
         runs.append({k: (p.grad.clone(), p.detach().clone()) for k, p in ps.items()
                      if p.grad is not None})
     spread = {k: float((g - runs[1][k][0]).abs().max()) for k, (g, _) in runs[0].items()}
     pspread = {k: float((p - runs[1][k][1]).abs().max()) for k, (_, p) in runs[0].items()}
     if any(spread.values()) or any(pspread.values()):
-        fail(f"two steps from one state differ: gradients {spread}, parameters {pspread}")
+        fail(f"{label}: two steps from one state differ: gradients {spread}, "
+             f"parameters {pspread}")
     del runs
 
-    step = make_train_step(assets, config, rcfg, params, device=dev)
-    for d in (rk.LAUNCHES, pk.LAUNCHES, sg.LAUNCHES):
-        for k in d:
-            d[k] = 0
+    step = make_train_step(assets, config, rcfg, params, device=dev, vgg=vgg)
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     plan = [(True, True)] * 8 + [(True, False)] * 3 + [(False, True)] * 3
     times, losses = [], []
-    for coarse_on, app_on in plan:
+    for i, (coarse_on, app_on) in enumerate(plan):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         total, br = step(aux, fids, images, masks, masks_er, ref_verts,
-                         coarse_on=coarse_on, app_on=app_on, generator=gen)
+                         coarse_on=coarse_on, app_on=app_on, key=keys[i + 1])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(total))
         if not np.isfinite(losses[-1]):
-            fail(f"non-finite loss in step ({coarse_on}, {app_on})")
+            fail(f"{label}: non-finite loss in step ({coarse_on}, {app_on})")
         over = {k: float(br[k]) for k in OVERFLOW_KEYS if k in br}
         if any(over.values()):
-            fail(f"raster overflow in step ({coarse_on}, {app_on}): {over}")
+            fail(f"{label}: raster overflow in step ({coarse_on}, {app_on}): {over}")
         if coarse_on and app_on and len(over) != 6:
-            fail("stage-2 breakdown lacks an overflow counter")
-    launches = dict(rk.LAUNCHES, **pk.LAUNCHES, **sg.LAUNCHES)
+            fail(f"{label}: stage-2 breakdown lacks an overflow counter")
+        if app_on and (vgg is not None) != ("vgg" in br):
+            fail(f"{label}: the VGG term is {'missing' if vgg else 'present'}")
+    launches = read_launches()
     n2, n1, n3 = (plan.count(f) for f in ((True, True), (True, False), (False, True)))
-    # K1 soft and K2 run in stages 1 and 2; K1 depth-only for the light in
-    # stages 2 and 3 and for the camera in stage 3; K3 in stages 2 and 3.
-    # segment_sum per step: eight in stages 2 and 3 (the vertex normals of
-    # the displacement and of the shading, the face-row gathers of the
-    # camera and the light, the packed attributes, the texture, the two
-    # texture regularisers), one in stage 1 (the displacement's vertex
-    # normals), and one more wherever K2 runs (its vertex scatter). K3 sums
-    # its taps in fixed point in its own kernel and calls no segment_sum.
-    expected = {"raster_ids_soft": n2 + n1, "raster_ids_depth": n2 + 2 * n3,
-                "coverage_grad": n2 + n1, "pcf_scatter": n2 + n3,
-                "segment_sum": 8 * (n2 + n3) + n1 + (n2 + n1)}
+    expected = expected_launches(n2, n1, n3)
     if launches != expected:
-        fail(f"launch counts {launches}, expected {expected}")
+        fail(f"{label}: launch counts {launches}, expected {expected}")
     step_ms = float(np.median(times[3:n2])) * 1e3  # the first steps warm up
-    emit({"phase": "step", "frames": B_STEP, "img": img, "gt_render_s": gt_s,
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def stage2():
+        step(aux, fids, images, masks, masks_er, ref_verts, coarse_on=True, app_on=True,
+             key=keys[0])
+
+    prof = phase_profile(stage2, label)
+    emit({"phase": label, "frames": B_STEP, "img": config.img_size,
+          "vgg_compute_dtype": vgg_dtype, "gt_render_s": seq["gt_render_s"], **extra,
           "losses": losses, "step_ms_stage2_median": step_ms,
           "frames_per_s": B_STEP / (step_ms / 1e3),
           "step_ms_stage1_median": float(np.median(times[n2:n2 + n1])) * 1e3,
           "step_ms_stage3_median": float(np.median(times[n2 + n1:])) * 1e3,
-          "step_ms_all": [t * 1e3 for t in times],
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "launches": launches, "grad_run_to_run_max_abs": spread,
-          "param_run_to_run_max_abs": pspread})
-    def stage2():
-        step(aux, fids, images, masks, masks_er, ref_verts, coarse_on=True, app_on=True,
-             generator=gen)
+          "step_ms_all": [t * 1e3 for t in times], "peak_mem_gib": peak,
+          "device_busy_ms": prof["device_busy_ms"], "launches": launches,
+          "grad_run_to_run_max_abs": spread, "param_run_to_run_max_abs": pspread})
+    return launches, stage2
 
-    phase_profile(stage2)
-    phase_segment_sum_shapes(stage2, 8 + 1)  # a stage-2 step's count, as above
-    return launches
+
+def phase_vgg_f32(dev, seq) -> None:
+    """The stage-2 VGG step with float32 convolutions, TF32 off and then on:
+    median of 3 warm steps and the profiled step's device-busy ms, as
+    numbers only (the port's default is bf16)."""
+    import torch
+    from harp_tpu_torch.fit.driver import _key_stream_np, make_train_step
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.render import pipeline
+
+    config, vgg, aux, gt_s = vgg_setup(seq, dev, "float32")
+    params, _ = init_params(seq["init"], seq["assets"], config, device=dev)
+    fids = torch.arange(B_STEP, device=dev)
+    with torch.no_grad():
+        ref_verts = pipeline.mesh_forward(params, fids[:1], seq["assets"], config)[0][0]
+    step = make_train_step(seq["assets"], config, seq["rcfg"], params, device=dev, vgg=vgg)
+    key = _key_stream_np(0, 1)[0]
+    out = {"phase": "vgg_step_f32", "gt_cache_s": gt_s}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            def stage2():
+                step(aux, fids, seq["images"], seq["masks"], seq["masks_er"], ref_verts,
+                     coarse_on=True, app_on=True, key=key)
+
+            times = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stage2()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            prof = phase_profile(stage2, f"vgg_step_f32_tf32_{'on' if tf32 else 'off'}")
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        tag = "tf32_on" if tf32 else "tf32_off"
+        out[f"step_ms_stage2_median_{tag}"] = float(np.median(times[1:])) * 1e3
+        out[f"device_busy_ms_{tag}"] = prof["device_busy_ms"]
+    emit(out)
+
+
+def phase_pcf_rounding(dev, seq) -> None:
+    """K3's fixed point on the flagship's own tap updates. One stage-2 VGG
+    step is run three times from one state, its K3 call recorded, with the
+    scatter done by K3, by its float32 plain version and by a float64
+    scatter: K3's per-texel error on those updates, the texels its
+    rounding zeroes, and the change of the light-depth gradient and of
+    every parameter gradient. Judged against the step's card-vs-CPU
+    tolerance, 8e-4 of each leaf's largest entry, and per frame for the
+    per-frame leaves and the depth map; fails beyond it."""
+    import torch
+    from harp_tpu_torch.fit.driver import _key_stream_np, make_train_step
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
+
+    def scatter_f64(yc, xc, upd, hl):
+        return pk.pcf_scatter_plain(yc, xc, upd.double(), hl)
+
+    config, vgg, aux, _ = vgg_setup(seq, dev, "bfloat16")
+    params, _ = init_params(seq["init"], seq["assets"], config, device=dev)
+    fids = torch.arange(B_STEP, device=dev)
+    with torch.no_grad():
+        ref_verts = pipeline.mesh_forward(params, fids[:1], seq["assets"], config)[0][0]
+    original = pk.pcf_scatter
+    runs = {}
+    for name, fn in (("k3", original), ("plain", pk.pcf_scatter_plain),
+                     ("f64", lambda *a: scatter_f64(*a).float())):
+        calls = []
+
+        def recording(yc, xc, upd, hl, fn=fn, calls=calls):
+            out = fn(yc, xc, upd, hl)
+            calls.append((yc, xc, upd, hl, out))
+            return out
+
+        ps = {k: p.detach().clone().requires_grad_(True) for k, p in params.items()}
+        pk.pcf_scatter = recording
+        try:
+            make_train_step(seq["assets"], config, seq["rcfg"], ps, device=dev, vgg=vgg)(
+                aux, fids, seq["images"], seq["masks"], seq["masks_er"], ref_verts,
+                coarse_on=True, app_on=True, key=_key_stream_np(0, 1)[0])
+            torch.cuda.synchronize()
+        finally:
+            pk.pcf_scatter = original
+        if len(calls) != 1:
+            fail(f"pcf_rounding: {len(calls)} K3 calls in a stage-2 step, expected 1")
+        runs[name] = (calls[0], {k: p.grad.clone() for k, p in ps.items() if p.grad is not None})
+    (yc, xc, upd, hl, d_k3), g_k3 = runs["k3"]
+    d_plain, g_plain = runs["plain"][0][4], runs["plain"][1]
+    if not all(torch.equal(runs[n][0][2], upd) for n in ("plain", "f64")):
+        fail("pcf_rounding: the three steps' tap updates differ")
+    d64 = scatter_f64(yc, xc, upd, hl)
+    big = d64.abs() > 1e-30
+
+    def texel_rel(d, ref=d64):
+        """|d - ref| over the float64 sum, on texels whose |sum| > 1e-30."""
+        r = ((d.double() - ref.double()).abs() / d64.abs())[big]
+        return {"max": float(r.max()), "p99": float(torch.quantile(r[:2**24].float(), 0.99)),
+                "median": float(r.median())}
+
+    def leaf_err(got, want):
+        """max |got - want| over max |want|: whole leaf and per frame."""
+        whole = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+        per_frame = None
+        if got.dim() >= 1 and got.shape[0] == B_STEP:
+            w = want.reshape(B_STEP, -1).abs().amax(1)
+            e = (got - want).reshape(B_STEP, -1).abs().amax(1)
+            per_frame = float((e[w > 0] / w[w > 0]).max()) if bool((w > 0).any()) else 0.0
+        return whole, per_frame
+
+    tol = 8e-4
+    judged, failures = {}, []
+    for ref_name, (d_ref, g_ref) in (("plain", (d_plain, g_plain)),
+                                     ("f64", (runs["f64"][0][4], runs["f64"][1]))):
+        rows = {"light_depth_dpad": leaf_err(d_k3, d_ref)}
+        rows.update({k: leaf_err(g_k3[k], g_ref[k]) for k in g_ref})
+        judged[ref_name] = rows
+        for k, (whole, per_frame) in rows.items():
+            if whole > tol or (per_frame is not None and per_frame > tol):
+                failures.append(f"{k} vs {ref_name}: {whole} (per frame {per_frame})")
+    finite = torch.isfinite(upd)
+    frame_max = upd.abs().where(finite, 0.0).reshape(B_STEP, -1).amax(1)
+    shift = pk.fixed_point_shift(float(frame_max.max()), upd.shape[1])
+    emit({"phase": "pcf_rounding", "frames": B_STEP, "pixels_per_frame": upd.shape[1],
+          "upd_max_abs": float(frame_max.max()), "shift": shift,
+          "quantum": 2.0 ** -shift,
+          "frame_max_over_global_max_min": float((frame_max / frame_max.max()).min()),
+          "nonzero_updates": int((upd != 0).sum()),
+          "updates_below_half_quantum": int(((upd != 0) & (upd.abs() < 2.0 ** (-shift - 1))).sum()),
+          "texels_f64_nonzero": int(big.sum()),
+          "texels_zeroed_nonzero_in_f32": int(((d_k3 == 0) & (d_plain != 0)).sum()),
+          "texel_rel_err_k3_vs_f64": texel_rel(d_k3),
+          "texel_rel_err_k3_vs_plain": texel_rel(d_k3, d_plain),
+          "texel_rel_err_plain_vs_f64": texel_rel(d_plain),
+          "leaf_err_k3": judged, "tolerance": tol, "held": not failures})
+    if failures:
+        fail(f"pcf_rounding: K3's fixed point beyond {tol} of a leaf's largest entry: "
+             + "; ".join(failures))
+
+
+def phase_fit(dev, seq) -> dict:
+    """fit_sequence at full width (the flagship: 18 frames of 448^2,
+    reference density, self-shadow, VGG in bf16 with the cached GT,
+    stages 2 / 2 / 2) twice from one seed, then evaluate_sequence on the
+    first: the loss per epoch, the JSONL's overflow counters, IoU / L1 /
+    MS-SSIM. The two fits' final parameters must be the same bits, the
+    last epoch's loss below the first's, every counter 0, and every kernel
+    launched in the fit as many times as its steps need."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, FitData, fit_sequence
+    from harp_tpu_torch.fit.evaluate import evaluate_sequence
+    from harp_tpu_torch.fit.params import init_params
+
+    config = dataclasses.replace(seq["config"], w_vgg=1.0, training_stage=(2, 2, 2),
+                                 total_epoch=6)
+    data = FitData(seq["images"], seq["masks"], seq["masks_er"])
+    finals, out = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in range(2):
+            params, aux = init_params(seq["init"], seq["assets"], config, device=dev)
+            out_dir = os.path.join(tmp, f"fit{run}")
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, history = fit_sequence(config, seq["assets"], data, params, aux,
+                                           rcfg=seq["rcfg"], out_dir=out_dir, device=dev)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = read_launches()
+            finals.append({k: p.detach().clone() for k, p in params.items()})
+            if run == 0:
+                expected = expected_launches(2, 2, 2)
+                expected["segment_sum"] += 1  # the ARAP reference's vertex normals
+                if launches != expected:
+                    fail(f"fit: launch counts {launches}, expected {expected}")
+                with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                    logged = [json.loads(ln) for ln in f]
+                epochs = [r for r in logged if "loss" in r]
+                if len(epochs) != config.total_epoch:
+                    fail(f"fit: {len(epochs)} epoch lines in metrics.jsonl")
+                missing = [k for k in OVERFLOW_KEYS if k not in epochs[2]]
+                counters = {k: max(r.get(k, 0.0) for r in epochs) for k in OVERFLOW_KEYS}
+                if missing or any(counters.values()):
+                    fail(f"fit: overflow counters missing {missing} or non-zero {counters}")
+                losses = [h["loss"] for h in history]
+                if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                    fail(f"fit: epoch losses {losses}")
+                reset_launches()
+                t0 = time.perf_counter()
+                stats = evaluate_sequence(config, seq["assets"], data, params, aux,
+                                          rcfg=seq["rcfg"], out_dir=out_dir, device=dev)
+                eval_s = time.perf_counter() - t0
+                eval_launches = read_launches()
+                n_png = len(os.listdir(os.path.join(out_dir, "rendered_after_opt")))
+                out = {"epoch_losses": losses, "fit_s": fit_s, "launches": launches,
+                       "overflow_max": counters, "eval": stats, "eval_s": eval_s,
+                       "eval_launches": eval_launches, "eval_pngs": n_png,
+                       "vgg_terms": [h.get("vgg") for h in history]}
+                if not (0.5 < stats["Silhouette IoU"] <= 1.0 and 0.0 < stats["MS_SSIM"] <= 1.0
+                        and np.isfinite(stats["L1"]) and n_png == B_STEP):
+                    fail(f"fit: eval {stats}, {n_png} composites")
+    spread = {k: float((finals[0][k] - finals[1][k]).abs().max()) for k in finals[0]}
+    if any(spread.values()):
+        fail(f"fit: two fits from one seed differ: {spread}")
+    emit({"phase": "fit", "frames": B_STEP, "epochs": config.total_epoch,
+          "stages": list(config.training_stage), **out, "fit2_param_max_abs_diff": spread})
+    return out["launches"]
 
 
 def phase_segment_sum_shapes(run_step, per_step: int) -> None:
@@ -622,9 +896,9 @@ def phase_segment_sum_shapes(run_step, per_step: int) -> None:
           "gap_ms_sum": device_sum - bound_sum})
 
 
-def phase_profile(run_step) -> None:
+def phase_profile(run_step, label: str) -> dict:
     """Where one stage-2 step's device time goes (torch.profiler), and the
-    device's busy share of the step's wall time."""
+    device's busy share of the step's wall time. Returns the record."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -641,9 +915,18 @@ def phase_profile(run_step) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / wall_ms,
-          "top": [{"name": k[:80], "self_device_ms": ms, "count": c} for k, ms, c in rows[:15]]})
+    # The same device time by the operator that launched it (self: kernels
+    # an aten op launched itself, not through the ops it called).
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    ops.sort(key=lambda r: -r[1])
+    rec = {"phase": "profile", "of": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms,
+           "top": [{"name": k[:80], "self_device_ms": ms, "count": c} for k, ms, c in rows[:15]],
+           "top_ops": [{"op": k[:60], "self_device_ms": ms, "count": c}
+                       for k, ms, c in ops[:12]]}
+    emit(rec)
+    return rec
 
 
 def main() -> int:
@@ -662,7 +945,15 @@ def main() -> int:
     phase_device()
     records = phase_kernels(dev)
     phase_vs_cpu(dev)
-    launches = phase_step(dev)
+    seq = flagship_sequence(dev)
+    phase_pcf_rounding(dev, seq)
+    _, stage2 = phase_step(dev, seq)
+    phase_segment_sum_shapes(stage2, 8 + 1)  # a stage-2 step's count (expected_launches)
+    del stage2
+    # The headline main path: the step with VGG, whose launches the kernels line reports.
+    launches, _ = phase_step(dev, seq, vgg_dtype="bfloat16")
+    phase_vgg_f32(dev, seq)
+    phase_fit(dev, seq)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

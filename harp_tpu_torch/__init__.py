@@ -12,11 +12,20 @@ The module tree mirrors harp_tpu/ so each counterpart is easy to find:
     render/kernels/      wrappers of the hand-written CUDA kernels, each with
                          its plain PyTorch version and a launch counter
     csrc/                the CUDA C++ sources (built by nvcc at first use)
-    losses/              keypoint / geometry / texture regularisers
-    fit/                 parameters, the two Adam groups, the train step
+    losses/              keypoint / geometry / texture regularisers, the
+                         VGG16 perceptual loss (cuDNN convolutions)
+    fit/                 parameters, the two Adam groups, the train step,
+                         fit_sequence (the staged epochs, checkpoints,
+                         resume) and evaluate_sequence
+    eval/                IoU, L1, MS-SSIM, the VGG perceptual proxy,
+                         Procrustes
+    utils/               checkpoint / result IO, JSONL metrics and
+                         profiling, PNG visual outputs
     data/                synthetic ground-truth sequences
+    fit_avatar.py        the CLI: python -m harp_tpu_torch.fit_avatar --synthetic
 
-The package imports torch and numpy only: never jax, never harp_tpu.
+The package imports torch, numpy, scipy (Procrustes) and PyYAML (config
+files) only: never jax, never harp_tpu.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; a CUDA
 tensor always goes to the hand-written kernel, a CPU tensor to its plain
 version.

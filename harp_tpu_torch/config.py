@@ -1,9 +1,9 @@
 """Configuration for harp_tpu_torch: a field-for-field copy of harp_tpu's
 HarpConfig, so a config.yaml written by either package loads in the other.
 
-Fields that select a harp_tpu backend or a part not ported yet
-(pcf_backend, pcf_grad_tiles, vgg_*, checkpoint_backend) are carried for
-that parity; the port's dispatch is by tensor device (see render/kernels).
+Fields that select a harp_tpu backend or a part not ported
+(pcf_backend, pcf_grad_tiles, checkpoint_backend) are carried for that
+parity; the port's dispatch is by tensor device (see render/kernels).
 """
 
 from __future__ import annotations
@@ -91,8 +91,8 @@ class HarpConfig:
     w_vgg: float = 1.0
     w_albedo: float = 0.5
     w_normal_reg: float = 0.1
-    # VGG perceptual loss settings (the perceptual loss is not ported yet:
-    # the port's step computes harp_tpu's losses with vgg=None).
+    # VGG perceptual loss settings (losses/perceptual.py; the GT pyramid
+    # cache is made once per sequence by fit_sequence).
     vgg_weights: str = ""
     vgg_chunk: int = 6
     vgg_compute_dtype: str = "bfloat16"

@@ -28,9 +28,12 @@ def erode_mask(mask: torch.Tensor, iterations: int = 2) -> torch.Tensor:
 def make_synthetic_sequence(assets, config, rcfg: RasterConfig,
                             n_frames: int = 4, seed: int = 0,
                             perturb: float = 0.15, cam=(6.0, -0.08, -0.01),
-                            device=None):
+                            shape_seed: int | None = None, device=None):
     """(images, masks, masks_eroded, gt_params, init_params_dict); images
-    (N, H, W, 3), masks (N, H, W) on `device`; init is a numpy dict."""
+    (N, H, W, 3), masks (N, H, W) on `device`; init is a numpy dict.
+    shape_seed: the GT hand shape from its own RandomState(shape_seed), so
+    two sequences of different `seed` show one identity; the main stream
+    is drawn unchanged."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     ts = config.texture_size
@@ -62,6 +65,9 @@ def make_synthetic_sequence(assets, config, rcfg: RasterConfig,
         "light_positions": t32(np.tile([-0.5, -0.5, -0.5], (n_frames, 1))),
         "amb_ratio": t32(0.4),
     }
+
+    if shape_seed is not None:
+        gt["shape"] = t32(0.3 * np.random.RandomState(shape_seed).randn(S))
 
     with torch.no_grad():
         fids = torch.arange(n_frames, device=dev)

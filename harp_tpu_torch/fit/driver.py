@@ -1,27 +1,42 @@
-"""The fit step (harp_tpu/fit/driver.py: compute_losses, _grad_step,
-make_train_step, stage_flags).
+"""The fit (harp_tpu/fit/driver.py: compute_losses, _grad_step,
+make_train_step, stage_flags, FitData, fit_sequence, the key stream).
 
 One step: MANO forward, subdivision and displacement; one compact camera
 rasterization (K1, soft + hard); silhouette alpha (backward K2); shared
 per-pixel geometry; the light's depth-only raster (K1) and 3x3 PCF
-(backward K3); Phong shading; the losses; backward; the two Adam groups.
-The VGG perceptual term is not ported yet: the step computes the losses
-harp_tpu computes with vgg=None.
+(backward K3); Phong shading; the silhouette, keypoint, geometry,
+photometric, VGG perceptual (cuDNN convolutions) and texture losses;
+backward; the two Adam groups.
+
+fit_sequence runs the staged epochs with harp_tpu's numpy RandomState
+minibatch permutations and threefry key stream, so a fit sees the same
+minibatches and texture-regulariser offsets as harp_tpu's; the plateau
+schedule on coarse epochs; the per-epoch JSONL; checkpoints and resume.
+harp_tpu's TPU-tunnel machinery (mesh sharding, fused epoch scans, AOT
+prefetch lanes) has no counterpart here.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
+
+import numpy as np
 import torch
 
-from harp_tpu_torch.device import resolve_device
-from harp_tpu_torch.fit.optimizer import build_optimizers
+from harp_tpu_torch.device import deterministic_convolutions, resolve_device
+from harp_tpu_torch.fit.optimizer import PlateauState, build_optimizers, plateau_update
 from harp_tpu_torch.losses.basic import arap_loss, kps_anchor_loss, vert_disp_reg
+from harp_tpu_torch.losses.perceptual import (
+    Vgg16Features, precompute_slices, vgg_feature_l1, vgg_feature_l1_cached,
+)
 from harp_tpu_torch.losses.texture_reg import albedo_reg, normal_reg
 from harp_tpu_torch.ops.mesh import laplacian_smoothing_loss, normal_consistency_loss
 from harp_tpu_torch.ops.numerics import jnp_abs
 from harp_tpu_torch.render import pipeline
 from harp_tpu_torch.render.rasterizer import (
-    RasterConfig, gather_tiles, soft_alpha_fast_pack,
+    RasterConfig, gather_tiles, scatter_tiles, soft_alpha_fast_pack,
 )
 from harp_tpu_torch.render.shadow import shadow_visibility_compact
 
@@ -30,15 +45,129 @@ OVERFLOW_KEYS = ("bin_overflow", "active_overflow", "span_overflow",
                  "light_span_overflow")
 
 
+@dataclasses.dataclass
+class FitData:
+    """Device-resident sequence data: images (N, H, W, 3), masks and
+    eroded masks (N, H, W), float32 in [0, 1] or uint8 (decoded per
+    minibatch)."""
+
+    images: torch.Tensor
+    masks: torch.Tensor
+    masks_eroded: torch.Tensor
+
+    @property
+    def num_frames(self) -> int:
+        return self.images.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# harp_tpu's PRNG stream: threefry-2x32, numpy on the host for the per-step
+# keys, int64 tensor code on the device for the texture-reg normal draws.
+# ---------------------------------------------------------------------------
+
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_INJECT = ((1, 2), (2, 0), (0, 1), (1, 2), (2, 0))
+_M32 = 0xFFFFFFFF
+
+
+def _threefry2x32_np(key: np.ndarray, x0: np.ndarray, x1: np.ndarray) -> tuple:
+    """Threefry-2x32 (20 rounds) in numpy, lane for lane
+    jax._src.prng.threefry2x32: the rotation schedule [13,15,26,6] /
+    [17,29,16,24] over five 4-round groups, with the (k_a, k_b + i) key
+    injection after each group."""
+    u32 = np.uint32
+    ks = (u32(key[0]), u32(key[1]), u32(key[0]) ^ u32(key[1]) ^ u32(0x1BD11BDA))
+    x0 = (x0.astype(u32) + ks[0]).astype(u32)
+    x1 = (x1.astype(u32) + ks[1]).astype(u32)
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x0 = (x0 + x1).astype(u32)
+                x1 = ((x1 << u32(r)) | (x1 >> u32(32 - r))).astype(u32) ^ x0
+            a, b = _INJECT[i]
+            x0 = (x0 + ks[a]).astype(u32)
+            x1 = (x1 + ks[b] + u32(i + 1)).astype(u32)
+    return x0, x1
+
+
+def _split_np(key: np.ndarray) -> tuple:
+    """jax.random.split(key) (threefry_partitionable): lane 0 and lane 1 of
+    threefry2x32(key, hi=(0, 0), lo=(0, 1))."""
+    y0, y1 = _threefry2x32_np(key, np.zeros(2, np.uint32), np.arange(2, dtype=np.uint32))
+    return np.array([y0[0], y1[0]], np.uint32), np.array([y0[1], y1[1]], np.uint32)
+
+
+def _key_stream_np(seed: int, count: int) -> np.ndarray:
+    """The subkeys of the `key, sub = jax.random.split(key)` chain from
+    jax.random.PRNGKey(seed), (count, 2) uint32: the per-step keys of
+    harp_tpu's fit. A 64-bit seed would need x64 PRNGKeys; refused."""
+    if not 0 <= int(seed) < 2 ** 32:
+        raise ValueError(f"seed {seed!r} must be in [0, 2**32)")
+    key = np.array([0, seed], np.uint32)
+    subs = np.empty((count, 2), np.uint32)
+    for i in range(count):
+        key, subs[i] = _split_np(key)
+    return subs
+
+
+def _threefry2x32_torch(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
+    """_threefry2x32_np on int64 tensors masked to 32 bits. k0, k1: keys
+    broadcastable against the counters x0 (hi words) and x1 (lo words)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        a, b = _INJECT[i]
+        x0 = (x0 + ks[a]) & _M32
+        x1 = (x1 + ks[b] + (i + 1)) & _M32
+    return x0, x1
+
+
+def texture_reg_offsets(sub: np.ndarray, H: int, W: int, device):
+    """The (albedo, normal_reg) (H, W, 2) int64 neighbour offsets that
+    harp_tpu's compute_losses draws from a step's subkey `sub`:
+    k1, k2 = jax.random.split(sub); trunc(std * jax.random.normal(k, (H, W,
+    2))) at std 1 (k1) and 2 (k2). Both draws run as one threefry on the
+    device: bits = b1 ^ b2 of threefry2x32(k, hi=0, lo=iota); u in
+    [nextafter(-1, 0), 1) from the bits' top 23 as jax.random.uniform makes
+    it; z = sqrt(2) erfinv(u), erfinv taken in float64 (XLA's float32
+    polynomial rounds differently: an offset can differ where std * z lies
+    within ~1e-6 of an integer)."""
+    k1, k2 = _split_np(np.asarray(sub, np.uint32))
+    keys = torch.tensor([[int(k1[0]), int(k1[1])], [int(k2[0]), int(k2[1])]],
+                        dtype=torch.int64, device=device)
+    lo = torch.arange(H * W * 2, dtype=torch.int64, device=device)[None]
+    b1, b2 = _threefry2x32_torch(keys[:, :1], keys[:, 1:], torch.zeros_like(lo), lo)
+    bits = ((b1 ^ b2) >> 9) | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo_f = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = torch.clamp(floats * 2.0 + lo_f, min=lo_f)  # (hi - lo) is 2.0 in float32
+    z = (float(np.float32(np.sqrt(2.0))) * torch.special.erfinv(u.double())).float()
+    std = torch.tensor([[1.0], [2.0]], device=device)
+    d = torch.trunc(std * z).long().reshape(2, H, W, 2)
+    return d[0], d[1]
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+
 def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
                    assets, config, rcfg: RasterConfig, ref_verts,
                    coarse_on: bool, app_on: bool, generator=None,
-                   offsets=None):
+                   offsets=None, vgg: Vgg16Features | None = None, key=None):
     """All fitting losses for one minibatch -> (total, breakdown).
 
-    offsets: optional (albedo, normal_reg) (H, W, 2) texture-reg neighbour
-    offsets; otherwise they are drawn from `generator`. The breakdown holds
-    every loss term and the six raster overflow counters."""
+    Texture-reg neighbour offsets: `offsets` (albedo, normal_reg) (H, W, 2)
+    when given; else drawn from `key`, the step's harp_tpu subkey (two
+    uint32), as harp_tpu draws them; else from `generator`. vgg: the
+    perceptual network, or None for no VGG term; aux["vgg_gt"] holds the
+    cached GT pyramids when the fit made them. The breakdown holds every
+    loss term and the raster overflow counters."""
     losses = {}
     verts, joints = pipeline.mesh_forward(params, fids, assets, config)
     R, T = pipeline.camera_for_frames(params, fids, config)
@@ -94,6 +223,20 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
         comp_bg_term = jnp_abs((bg - gt_c) * me_c).sum()
         comp_term = jnp_abs((rgb_c - gt_c) * me_c).sum()
         losses["photo"] = (comp_term + full_bg_term - comp_bg_term) / (n_px * 3)
+        if vgg is not None:
+            rgb = scatter_tiles(rgb_c, act_idx, rcfg, bg)
+            m = batch_masks_er[..., None]
+            if "vgg_gt" in aux:
+                losses["vgg"] = vgg_feature_l1_cached(
+                    vgg, rgb * m, aux["vgg_gt"], fids, chunk=config.vgg_chunk,
+                    remat=config.vgg_remat)
+            else:
+                losses["vgg"] = vgg_feature_l1(vgg, rgb * m, batch_imgs * m,
+                                               chunk=config.vgg_chunk,
+                                               remat=config.vgg_remat)
+        if offsets is None and key is not None:
+            offsets = texture_reg_offsets(key, texture.shape[0], texture.shape[1],
+                                          texture.device)
         off_a, off_n = offsets if offsets is not None else (None, None)
         losses["albedo"] = albedo_reg(params["texture"], generator, std=1.0,
                                       uv_mask=aux["uv_mask"], offsets=off_a)
@@ -104,7 +247,7 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
         "silhouette": config.w_silhouette, "kps_anchor": config.w_kps_anchor,
         "vert_disp_reg": config.w_vert_disp_reg, "normal": config.w_normal,
         "laplacian": config.w_laplacian, "arap": config.w_arap,
-        "photo": config.w_photo, "albedo": config.w_albedo,
+        "photo": config.w_photo, "vgg": config.w_vgg, "albedo": config.w_albedo,
         "normal_reg": config.w_normal_reg,
     }
     total = torch.zeros((), device=verts.device)
@@ -129,29 +272,31 @@ def decode_frames(x: torch.Tensor) -> torch.Tensor:
 class TrainStep:
     """One training step: losses, backward, and the two Adam groups (each
     stepped only when its stage flag is on). Parameters are updated in
-    place."""
+    place. cuDNN runs deterministic algorithms, without autotuning, over
+    the forward and the backward."""
 
     def __init__(self, assets, config, rcfg: RasterConfig, params: dict,
-                 device=None):
+                 device=None, vgg: Vgg16Features | None = None):
         self.device = resolve_device(device)
         for k, v in params.items():
             if v.device.type != self.device.type:
                 raise ValueError(f"param {k} is on {v.device}, the step on {self.device}")
-        self.assets, self.config, self.rcfg = assets, config, rcfg
+        self.assets, self.config, self.rcfg, self.vgg = assets, config, rcfg, vgg
         self.params = params
         self.optimizers = build_optimizers(params, config)
 
     def __call__(self, aux, fids, batch_imgs, batch_masks, batch_masks_er,
                  ref_verts, lr_scale: float = 1.0, *, coarse_on: bool,
-                 app_on: bool, generator=None, offsets=None):
+                 app_on: bool, generator=None, offsets=None, key=None):
         for p in self.params.values():
             p.grad = None
-        total, breakdown = compute_losses(
-            self.params, aux, fids, decode_frames(batch_imgs),
-            decode_frames(batch_masks), decode_frames(batch_masks_er),
-            self.assets, self.config, self.rcfg, ref_verts, coarse_on, app_on,
-            generator=generator, offsets=offsets)
-        total.backward()
+        with deterministic_convolutions():
+            total, breakdown = compute_losses(
+                self.params, aux, fids, decode_frames(batch_imgs),
+                decode_frames(batch_masks), decode_frames(batch_masks_er),
+                self.assets, self.config, self.rcfg, ref_verts, coarse_on, app_on,
+                generator=generator, offsets=offsets, vgg=self.vgg, key=key)
+            total.backward()
         for name, on in (("coarse", coarse_on), ("app", app_on)):
             if not on:
                 continue
@@ -167,9 +312,9 @@ class TrainStep:
 
 
 def make_train_step(assets, config, rcfg: RasterConfig, params: dict,
-                    device=None) -> TrainStep:
+                    device=None, vgg: Vgg16Features | None = None) -> TrainStep:
     """The train step over `params` on `device` (CUDA unless given)."""
-    return TrainStep(assets, config, rcfg, params, device=device)
+    return TrainStep(assets, config, rcfg, params, device=device, vgg=vgg)
 
 
 def stage_flags(epoch: int, config):
@@ -180,3 +325,144 @@ def stage_flags(epoch: int, config):
     if epoch < s0 + s1:
         return True, True
     return False, True
+
+
+# ---------------------------------------------------------------------------
+# The staged fit
+# ---------------------------------------------------------------------------
+
+
+def _refuse(**tunnel_args) -> None:
+    """harp_tpu's TPU-tunnel and not-yet-ported options: accepted only off."""
+    on = sorted(k for k, v in tunnel_args.items() if v)
+    if on:
+        raise NotImplementedError(
+            f"fit_sequence options {on} are not ported (harp_tpu's mesh sharding, "
+            "epoch scans and AOT prefetch have no counterpart; image / val logs "
+            "wait for render_360; model extras for the arm and zoo models)")
+
+
+def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
+                 rcfg: RasterConfig | None = None, vgg: Vgg16Features | None = None,
+                 seed: int = 0, callback=None,
+                 out_dir: str | None = None, image_log_every: int = 0,
+                 checkpoint_every: int = 200, extras: dict | None = None,
+                 val_data: FitData | None = None, val_params: dict | None = None,
+                 val_log_every: int = 20, mesh=None, resume: dict | None = None,
+                 epoch_scan: int = 0, prefetch_compile: bool = False,
+                 prefetch_extra=None, device=None):
+    """Run the staged optimisation in place on `params`; returns (params,
+    history), history one dict per epoch: the epoch loss and each term's
+    mean over the epoch's steps, overflow counters included.
+
+    out_dir: per-epoch JSONL (metrics.jsonl) and, every `checkpoint_every`
+    epochs, saved_params.pkl and checkpoint.pt (params, both Adam states,
+    epoch, plateau state, the ARAP reference). resume: a load_checkpoint
+    payload; the fit continues at its epoch + 1 with its optimizer state,
+    plateau state and ARAP reference, the minibatch permutations replayed
+    (pass the checkpoint's params as `params`). callback(epoch, params,
+    history[-1]) runs after each epoch.
+
+    The GT VGG pyramids are cached once, before the first appearance epoch,
+    when config.vgg_cache_gt and the sequence has at most
+    vgg_cache_max_frames frames. Runs on CUDA unless device is given."""
+    from harp_tpu_torch.utils.io import save_checkpoint, save_result
+    from harp_tpu_torch.utils.profiling import MetricsLogger
+
+    _refuse(image_log_every=image_log_every, val_data=val_data,
+            val_params=val_params, mesh=mesh, epoch_scan=epoch_scan > 1,
+            prefetch_compile=prefetch_compile, prefetch_extra=prefetch_extra,
+            extras=extras)
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    rcfg = rcfg or config.raster_config()
+    if vgg is None and config.w_vgg > 0:
+        vgg = Vgg16Features.create(weights_path=config.vgg_weights or None,
+                                   compute_dtype=config.vgg_compute_dtype, device=dev)
+    step = make_train_step(assets, config, rcfg, params, device=dev, vgg=vgg)
+    logger = MetricsLogger(out_dir) if out_dir is not None else None
+
+    if resume is not None and "ref_verts" in (resume.get("extra") or {}):
+        # The ARAP reference is frame 0 at the fit's ORIGINAL initial
+        # parameters; recomputing it from the checkpoint would change the loss.
+        ref_verts = torch.as_tensor(resume["extra"]["ref_verts"], device=dev)
+    else:
+        with torch.no_grad():
+            ref_verts = pipeline.mesh_forward(
+                params, torch.zeros(1, dtype=torch.long, device=dev), assets, config)[0][0]
+
+    n = data.num_frames
+    bs = min(config.batch_size, n)
+    steps = max(n // bs, 1)
+    rng = np.random.RandomState(seed)
+    subs_all = _key_stream_np(seed, config.total_epoch * steps)
+    plateau = PlateauState()
+    history = []
+    start_epoch = 0
+    if resume is not None:
+        for g, opt in step.optimizers.items():
+            opt.load_state_dict(resume["opt_states"][g])
+        pl = (resume.get("extra") or {}).get("plateau")
+        plateau = (PlateauState(**{k: type(getattr(plateau, k))(v) for k, v in pl.items()})
+                   if pl else PlateauState(scale=float(resume.get("plateau_scale", 1.0))))
+        start_epoch = int(resume["epoch"]) + 1
+        for _ in range(start_epoch):  # the same minibatches as an unbroken fit
+            rng.permutation(n)
+
+    cache_gt = (vgg is not None and config.vgg_cache_gt
+                and n <= config.vgg_cache_max_frames)
+    if logger is not None:
+        logger.log(-1, setup_total_s=time.perf_counter() - t0)
+
+    try:
+        with deterministic_convolutions():
+            for epoch in range(start_epoch, config.total_epoch):
+                coarse_on, app_on = stage_flags(epoch, config)
+                if app_on and cache_gt and "vgg_gt" not in aux:
+                    t_gt = time.perf_counter()
+                    masked = (decode_frames(data.images)
+                              * decode_frames(data.masks_eroded)[..., None])
+                    aux = dict(aux, vgg_gt=precompute_slices(vgg, masked,
+                                                             chunk=config.vgg_chunk))
+                    del masked
+                    if logger is not None:
+                        logger.log(epoch, vgg_gt_materialize_s=time.perf_counter() - t_gt)
+                perm = rng.permutation(n)
+                total_acc, term_sums = None, {}
+                for s in range(steps):
+                    fids = torch.as_tensor(perm[s * bs:(s + 1) * bs], device=dev)
+                    total, breakdown = step(
+                        aux, fids, data.images[fids], data.masks[fids],
+                        data.masks_eroded[fids], ref_verts, plateau.scale,
+                        coarse_on=coarse_on, app_on=app_on, key=subs_all[epoch * steps + s])
+                    # Summed on the device: one host sync an epoch.
+                    total_acc = total if total_acc is None else total_acc + total
+                    for k, v in breakdown.items():
+                        term_sums[k] = v if k not in term_sums else term_sums[k] + v
+                keys = list(term_sums)
+                host = torch.stack([total_acc] + [term_sums[k] for k in keys]).cpu().numpy()
+                epoch_loss = float(host[0]) / steps
+                if coarse_on:
+                    plateau = plateau_update(plateau, epoch_loss, config.plateau_patience,
+                                             config.plateau_factor)
+                history.append({"epoch": epoch, "loss": epoch_loss,
+                                **{k: float(v) / steps for k, v in zip(keys, host[1:])}})
+                if logger is not None:
+                    logger.log(epoch, lr_scale=plateau.scale, **history[-1])
+                if out_dir is not None and checkpoint_every and epoch > 0 \
+                        and epoch % checkpoint_every == 0:
+                    save_result(params, out_dir, test=config.known_appearance)
+                    save_checkpoint(
+                        os.path.join(out_dir, "checkpoint.pt"), params,
+                        {g: opt.state_dict() for g, opt in step.optimizers.items()},
+                        epoch, plateau.scale,
+                        extra={"plateau": dataclasses.asdict(plateau),
+                               "ref_verts": ref_verts.cpu()})
+                if callback is not None:
+                    callback(epoch, params, history[-1])
+        if logger is not None:
+            logger.log(config.total_epoch, fit_s=time.perf_counter() - t0)
+    finally:
+        if logger is not None:
+            logger.close()
+    return params, history

@@ -1,1 +1,1 @@
-"""Fitting losses (torch counterparts of harp_tpu.losses; VGG not yet)."""
+"""Fitting losses (torch counterparts of harp_tpu.losses)."""

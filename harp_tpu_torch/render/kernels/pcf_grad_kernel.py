@@ -93,10 +93,10 @@ def pcf_scatter(yc: torch.Tensor, xc: torch.Tensor, upd: torch.Tensor,
 
 
 def pcf_scatter_plain(yc, xc, upd, hl: int) -> torch.Tensor:
-    """K3's plain PyTorch version: one scatter-add per tap."""
+    """K3's plain PyTorch version: one scatter-add per tap, in upd's dtype."""
     B = yc.shape[0]
     hp4 = hl + 4
-    dpad = torch.zeros(B, hp4 * hp4, dtype=torch.float32, device=yc.device)
+    dpad = torch.zeros(B, hp4 * hp4, dtype=upd.dtype, device=yc.device)
     for di in (-1, 0, 1):
         for dj in (-1, 0, 1):
             idx = ((yc.long() + di) * hp4 + (xc.long() + dj))

@@ -12,8 +12,8 @@ from harp_tpu_torch.ops.numerics import safe_normalize
 from harp_tpu_torch.render import camera as cam_mod
 from harp_tpu_torch.render import shading
 from harp_tpu_torch.render.rasterizer import (
-    RasterConfig, barycentrics_of, barycentrics_of_at, face_row_order, get_hard_ids,
-    raster_compact, scatter_tiles, soft_alpha_fast_pack, tile_pixel_coords,
+    RasterConfig, add_overflow, barycentrics_of, barycentrics_of_at, face_row_order,
+    get_hard_ids, raster_compact, scatter_tiles, soft_alpha_fast_pack, tile_pixel_coords,
 )
 
 
@@ -49,11 +49,14 @@ def camera_for_frames(params: dict, fids: torch.Tensor, config):
     return R, T
 
 
-def render_silhouette(verts, assets, R, T, config, raster_cfg: RasterConfig):
+def render_silhouette(verts, assets, R, T, config, raster_cfg: RasterConfig,
+                      counters: dict | None = None):
     """Soft silhouette alpha (B, H, W): the compact alpha (forward from the
-    coverage log-sum, backward K2) scattered to the image, 0 elsewhere."""
+    coverage log-sum, backward K2) scattered to the image, 0 elsewhere.
+    counters: see rasterizer.add_overflow (also for the renders below)."""
     screen = cam_mod.screen_from_world(verts, R, T, config.focal_length, config.img_size)
     out = raster_compact(screen, assets.render_faces, raster_cfg, need_hard=False)
+    add_overflow(counters, out)
     alpha = soft_alpha_fast_pack(out["soft_sum"], out["bins"], screen,
                                  assets.sub_topology.corners, raster_cfg)
     return scatter_tiles(alpha, out["act_idx"], raster_cfg, 0.0)
@@ -78,24 +81,52 @@ def _shade(points, pixel_normals, uv, mask, R, T, config, texture, normal_map,
         colors = (amb + diff * vis_map[..., None]) * texels + spec
     else:
         colors = (amb + diff) * texels + spec
-    bg = torch.as_tensor(config.background_color, dtype=colors.dtype, device=colors.device)
-    return torch.where(mask[..., None], colors, bg)
+    return shading.composite_hard(colors, mask, config.background_color)
+
+
+def _shade_pixels(verts, ids, bary, mask, assets, R, T, config, texture,
+                  normal_map, light_positions, ambient_color, diffuse_color,
+                  specular_color, vis_map=None, shininess: float = 0.0):
+    """Phong shading of a full-image hard rasterization (B, H, W, 3): one
+    packed gather of (position | normal | uv), composited over the
+    background."""
+    attrs = shading.interpolate_packed_attrs(
+        verts, vertex_normals(verts, assets.sub_topology), assets.render_faces,
+        assets.verts_uvs, assets.faces_uvs, ids, bary)
+    return _shade(attrs[..., 0:3], attrs[..., 3:6], attrs[..., 6:8], mask, R, T,
+                  config, texture, normal_map, light_positions, ambient_color,
+                  diffuse_color, specular_color, vis_map=vis_map, shininess=shininess)
 
 
 def render_rgb(verts, assets, R, T, config, raster_cfg: RasterConfig,
-               texture, normal_map, light_positions):
+               texture, normal_map, light_positions, counters: dict | None = None):
     """Phong colour render without shadows (B, H, W, 3)."""
     screen = cam_mod.screen_from_world(verts, R, T, config.focal_length, config.img_size)
-    ids = get_hard_ids(screen, assets.render_faces, raster_cfg)
+    ids = get_hard_ids(screen, assets.render_faces, raster_cfg, counters)
     bary, _, mask = barycentrics_of(ids, screen, assets.render_faces, raster_cfg)
+    return _shade_pixels(verts, ids, bary, mask, assets, R, T, config, texture,
+                         normal_map, light_positions, config.ambient_color,
+                         config.diffuse_color, config.specular_color,
+                         shininess=config.shininess)
+
+
+def render_normal(verts, assets, R, T, config, raster_cfg: RasterConfig,
+                  normal_map=None, counters: dict | None = None):
+    """Normals as colours (B, H, W, 3), SoftPhongNormalShader semantics:
+    interpolated (and, with a normal map, normal-mapped) normals, y and z
+    negated, mapped to [0, 1], over the background."""
+    screen = cam_mod.screen_from_world(verts, R, T, config.focal_length, config.img_size)
     faces = assets.render_faces
-    attrs = shading.interpolate_packed_attrs(
-        verts, vertex_normals(verts, assets.sub_topology), faces, assets.verts_uvs,
-        assets.faces_uvs, ids, bary)
-    return _shade(attrs[..., 0:3], attrs[..., 3:6], attrs[..., 6:8], mask, R, T,
-                  config, texture, normal_map, light_positions,
-                  config.ambient_color, config.diffuse_color,
-                  config.specular_color, shininess=config.shininess)
+    ids = get_hard_ids(screen, faces, raster_cfg, counters)
+    bary, _, mask = barycentrics_of(ids, screen, faces, raster_cfg)
+    pixel_normals = shading.interpolate_face_vertex_attrs(
+        vertex_normals(verts, assets.sub_topology), faces, ids, bary)
+    if normal_map is not None:
+        uv = shading.pixel_uvs(ids, bary, assets.verts_uvs, assets.faces_uvs)
+        nm_px = shading.sample_texture_bilinear(safe_normalize(normal_map), uv)
+        pixel_normals = shading.apply_normal_map(pixel_normals, nm_px)
+    flipped = pixel_normals * pixel_normals.new_tensor([1.0, -1.0, -1.0])
+    return shading.composite_hard((flipped + 1.0) / 2.0, mask, config.background_color)
 
 
 def raster_camera_view_compact(verts, assets, R, T, config,

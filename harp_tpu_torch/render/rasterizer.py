@@ -395,10 +395,24 @@ def _pixel_centers(cfg: RasterConfig, device):
     return r[None, :].expand(cfg.image_size, -1), r[:, None].expand(-1, cfg.image_size)
 
 
-def get_hard_ids(verts_px, faces, cfg: RasterConfig) -> torch.Tensor:
+def add_overflow(counters: dict | None, out: dict, prefix: str = "") -> None:
+    """Add a raster pass's overflow counters, summed over its frames, into
+    `counters` under prefix + name (nothing when counters is None). A
+    full-image render scatters the compact pass back and drops whatever it
+    truncated; its callers read these to refuse such a render."""
+    if counters is None:
+        return
+    for k in ("bin_overflow", "active_overflow", "span_overflow"):
+        counters[prefix + k] = counters.get(prefix + k, 0) + out[k].sum()
+
+
+def get_hard_ids(verts_px, faces, cfg: RasterConfig, counters: dict | None = None,
+                 prefix: str = "") -> torch.Tensor:
     """Full-image hard ids (B, H, W), -1 for background: K1's depth-only
-    pass scattered back (inactive tiles are background)."""
+    pass scattered back (inactive tiles are background). counters: see
+    add_overflow."""
     out = raster_compact(verts_px, faces, cfg, need_soft=False)
+    add_overflow(counters, out, prefix)
     return scatter_tiles(out["hard_ids"], out["act_idx"], cfg, -1)
 
 

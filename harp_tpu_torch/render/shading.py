@@ -8,6 +8,7 @@ mapping in a Pixar tangent frame, point-light Phong terms.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from harp_tpu_torch.ops.numerics import jnp_clip, safe_normalize
@@ -62,6 +63,33 @@ def interpolate_packed_attrs(verts, normals_v, faces, verts_uvs, faces_uvs,
         order = face_row_order(ids, F)
     g = gather_rows(packed.reshape(B * F, 24), order).reshape(ids.shape + (3, 8))
     return (g * bary[..., None]).sum(-2)
+
+
+def interpolate_face_vertex_attrs(attrs: torch.Tensor, faces, ids: torch.Tensor,
+                                  bary: torch.Tensor) -> torch.Tensor:
+    """Per-vertex attributes (B, V, C) interpolated at pixels with face ids
+    (B, ...) (background: any id < 0, masked by the caller) and
+    barycentrics (B, ..., 3) -> (B, ..., C)."""
+    B, _, C = attrs.shape
+    f = as_faces(faces, attrs.device)
+    fattr = attrs[:, f].reshape(B * f.shape[0], 3 * C)
+    g = gather_rows(fattr, face_row_order(ids, f.shape[0])).reshape(ids.shape + (3, C))
+    return (g * bary[..., None]).sum(-2)
+
+
+def pixel_uvs(ids: torch.Tensor, bary: torch.Tensor, verts_uvs, faces_uvs) -> torch.Tensor:
+    """Wedge-UV interpolation: (..., 2) uv coordinates at pixels (the UVs
+    are constants: a plain gather)."""
+    vuv = torch.as_tensor(np.asarray(verts_uvs), dtype=bary.dtype, device=bary.device)
+    fuv = vuv[as_faces(faces_uvs, bary.device)].reshape(-1, 6)  # (F, 6)
+    g = fuv[ids.long().clamp(min=0)].reshape(ids.shape + (3, 2))
+    return (g * bary[..., None]).sum(-2)
+
+
+def composite_hard(colors: torch.Tensor, mask: torch.Tensor, background) -> torch.Tensor:
+    """(..., 3) shaded colours over a constant background where ~mask."""
+    bg = torch.as_tensor(background, dtype=colors.dtype, device=colors.device)
+    return torch.where(mask[..., None], colors, bg)
 
 
 def pixar_tangent_frame(normals: torch.Tensor):

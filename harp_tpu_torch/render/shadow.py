@@ -107,6 +107,50 @@ def pcf_visibility(depth_light, x, y, a, config):
     return (vis / 9.0).reshape(a.shape)
 
 
+def render_rgb_with_shadow(verts, assets, config, raster_cfg: RasterConfig, cam,
+                           light_positions, amb_ratio_logit, texture, normal_map,
+                           counters: dict | None = None):
+    """Shadowed Phong colour render (B, H, W, 3) of the full image: K1
+    depth-only for the light's depth map and for the camera's hard ids,
+    then the camera hits reprojected into the light view, 3x3 PCF, and
+    shading with ambient sigmoid(amb_ratio_logit), diffuse 1 - ambient and
+    no specular. counters: see rasterizer.add_overflow (light pass under
+    "light_")."""
+    from harp_tpu_torch.render import shading
+    from harp_tpu_torch.render.pipeline import _shade_pixels
+    from harp_tpu_torch.render.rasterizer import barycentrics_of, get_hard_ids
+
+    hand_center = verts.mean(dim=1)
+    light_R, light_T, cam_R, cam_T = shadow_cameras(cam, light_positions,
+                                                    hand_center, config)
+    faces = assets.render_faces
+    H = config.img_size
+    rcfg_l = light_raster_config(raster_cfg, config.shadow_map_scale)
+    Hl = rcfg_l.image_size
+    focal_l = config.focal_length * (Hl / H)
+    screen_l = cam_mod.screen_from_world(verts, light_R, light_T, focal_l, Hl)
+    ids_l = get_hard_ids(screen_l, faces, rcfg_l, counters, prefix="light_")
+    _, z_l, mask_l = barycentrics_of(ids_l, screen_l, faces, rcfg_l)
+    depth_light = torch.where(mask_l, z_l, -1.0)  # pytorch3d's zbuf: -1 where empty
+
+    screen_c = cam_mod.screen_from_world(verts, cam_R, cam_T, config.focal_length, H)
+    ids_c = get_hard_ids(screen_c, faces, raster_cfg, counters)
+    bary_c, _, mask_c = barycentrics_of(ids_c, screen_c, faces, raster_cfg)
+    points = shading.interpolate_face_vertex_attrs(verts, faces, ids_c, bary_c)
+    B = verts.shape[0]
+    view_l = cam_mod.world_to_view(points.reshape(B, -1, 3), light_R, light_T)
+    depth_from_light = view_l[..., 2].reshape(B, H, H)
+    spts = cam_mod.view_to_screen(view_l, focal_l, Hl)
+    x = torch.round(spts[..., 0]).to(torch.int32).reshape(B, H, H)
+    y = torch.round(spts[..., 1]).to(torch.int32).reshape(B, H, H)
+    vis = pcf_visibility(depth_light, x, y, depth_from_light - config.shadow_bias, config)
+
+    amb = torch.sigmoid(amb_ratio_logit).expand(3)
+    return _shade_pixels(verts, ids_c, bary_c, mask_c, assets, cam_R, cam_T, config,
+                         texture, normal_map, light_positions, amb, 1.0 - amb,
+                         torch.zeros(3, device=verts.device), vis_map=vis)
+
+
 def shadow_visibility_compact(verts, assets, config, raster_cfg: RasterConfig,
                               cam, light_positions, screen_c, rout, points):
     """PCF visibility (B, A, P) of the camera's compact active tiles.

@@ -274,3 +274,68 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda):
     with pytest.raises(ValueError, match="tile"):
         raster_compact(torch.from_numpy(verts).to(cuda), faces,
                        RasterConfig(image_size=36, tile=6, cap=64))
+
+
+def _light_fit_scene(cuda, n_frames=2):
+    """The light hand at 32^2 with VGG on (bf16, cached GT): its synthetic
+    sequence rendered on the card, config, raster config and init."""
+    from harp_tpu_torch.assets import build_synthetic_assets
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+
+    img = 32
+    assets = build_synthetic_assets(uv_size=64, density="light")
+    config = HarpConfig(img_size=img, focal_length=2000.0 * img / 448, texture_size=64,
+                        self_shadow=True, w_vgg=1.0, batch_size=n_frames,
+                        training_stage=(1, 1, 1), total_epoch=3)
+    rcfg = RasterConfig(image_size=img, tile=8, cap=1024, faces_per_pixel=16, span_tiles=4)
+    images, masks, masks_er, _, init = make_synthetic_sequence(
+        assets, config, rcfg, n_frames=n_frames, seed=0, device=cuda)
+    return assets, config, rcfg, (images, masks, masks_er), init
+
+
+def test_vgg_train_step_repeats_bit_equal(cuda):
+    """Two stage-2 TrainSteps with the VGG term (bf16, cached GT pyramids,
+    remat) from one state give the same gradients and parameters, bit for
+    bit: cuDNN held deterministic over the forward, the checkpoint's
+    recompute and the backward."""
+    from harp_tpu_torch.fit.driver import _key_stream_np, make_train_step
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.losses.perceptual import Vgg16Features, precompute_slices
+    from harp_tpu_torch.render import pipeline
+
+    assets, config, rcfg, data, init = _light_fit_scene(cuda)
+    vgg = Vgg16Features.create(compute_dtype="bfloat16", device=cuda)
+    fids = torch.arange(2, device=cuda)
+    results = []
+    for _ in range(2):
+        params, aux = init_params(init, assets, config, device=cuda)
+        aux["vgg_gt"] = precompute_slices(vgg, data[0] * data[2][..., None], chunk=1)
+        ref = pipeline.mesh_forward(params, fids[:1], assets, config)[0][0].detach()
+        step = make_train_step(assets, config, rcfg, params, device=cuda, vgg=vgg)
+        _, br = step(aux, fids, *data, ref, coarse_on=True, app_on=True,
+                     key=_key_stream_np(0, 1)[0])
+        assert float(br["vgg"]) > 0
+        results.append({k: (p.grad.clone(), p.detach().clone()) for k, p in params.items()
+                        if p.grad is not None})
+    for k, (g, p) in results[0].items():
+        assert torch.equal(g, results[1][k][0]), f"gradient of {k} differs"
+        assert torch.equal(p, results[1][k][1]), f"updated {k} differs"
+
+
+def test_three_epoch_fit_repeats_bit_equal(cuda):
+    """fit_sequence over stages 1 / 1 / 1 with VGG, twice from one seed:
+    the same history and final parameters, bit for bit."""
+    from harp_tpu_torch.fit.driver import FitData, fit_sequence
+    from harp_tpu_torch.fit.params import init_params
+
+    assets, config, rcfg, data, init = _light_fit_scene(cuda)
+    runs = []
+    for _ in range(2):
+        params, aux = init_params(init, assets, config, device=cuda)
+        runs.append(fit_sequence(config, assets, FitData(*data), params, aux, rcfg=rcfg,
+                                 device=cuda))
+    (p0, h0), (p1, h1) = runs
+    assert h0 == h1 and [h["epoch"] for h in h0] == [0, 1, 2]
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
