@@ -15,7 +15,12 @@ that two train steps from one state give the same gradients and
 parameters bit for bit; time segment_sum at every call site of one
 stage-2 step; time the VGG step in float32 with TF32 off and on; run
 fit_sequence (stages 2 / 2 / 2) twice from one seed, which must give the
-same bits, and evaluate_sequence on it.
+same bits, and evaluate_sequence on it. Then the SMPL-X arm at reference
+density (4078 render vertices, 8128 faces): the kernels at its shapes
+(arm_kernel, each; arm_kernels, all with the arm step's launches), its
+card-vs-CPU step, its 18-frame 448^2 step without VGG
+(arm_step) and with it (arm_vgg_step), one HTML and one NIMBLE step
+(zoo_step), and the arm fit through the CLI (arm_fit).
 
     python3 chip_smoke.py
 
@@ -59,6 +64,15 @@ OPS_GRAD = 81   # per hit, K2: the log-sum's derivative (25), one edge's gradien
 # inside or within blur of more faces.
 
 B_STEP = 18  # frames of the step, and of the kernel checks and timings
+IMG, TEX = 448, 512  # image and texture sizes of the flagship fit
+# The arm's raster budget (the port's CLI takes it for --use-arm).
+# harp_tpu's CLI defaults (active 0.28, span 3) truncate the arm's 18-frame
+# synthetic sequence: its forearm takes up to 329 of 784 tiles a frame, and
+# faces span 4 tiles (phase arm_budget reads the counters on the card).
+ARM_BUDGET = dict(active_fraction=0.5, span_tiles=4, cap=448)
+# HTML's and NIMBLE's synthetic meshes are the light hand, not subdivided
+# (262 vertices, 500 faces): at 448^2 a face spans up to 8 tiles.
+ZOO_BUDGET = dict(active_fraction=0.5, span_tiles=8, cap=448)
 # The plain raster versions walk face slots 64 at a time at 18 frames: their
 # (B, A, slots, P) temporaries then fit the card.
 PLAIN_FACE_CHUNK = 64
@@ -72,24 +86,27 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def flagship(n_frames: int, device):
+def flagship(n_frames: int, device, arm: bool = False):
     """Assets, config, raster config and parameters of the flagship fit
     (448^2, texture 512, reference density, self-shadow, no VGG; the
-    parameters of harp_tpu's __graft_entry__._build)."""
+    parameters of harp_tpu's __graft_entry__._build), of the MANO hand or,
+    with `arm`, of the SMPL-X arm (harp_tpu's value_arm_b18)."""
     import torch
-    from harp_tpu_torch.assets import build_synthetic_assets
+    from harp_tpu_torch.assets import build_synthetic_arm_assets, build_synthetic_assets
     from harp_tpu_torch.config import HarpConfig
     from harp_tpu_torch.convert import params_from_numpy
     from harp_tpu_torch.render.rasterizer import RasterConfig
 
-    assets = build_synthetic_assets(uv_size=512, density="reference")
-    config = HarpConfig(img_size=448, focal_length=2000.0, texture_size=512,
-                        self_shadow=True, w_vgg=0.0, batch_size=n_frames)
+    build = build_synthetic_arm_assets if arm else build_synthetic_assets
+    assets = build(uv_size=TEX, density="reference")
+    config = HarpConfig(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
+                        use_arm=arm, self_shadow=True, w_vgg=0.0, batch_size=n_frames)
     # harp_tpu's bench budget (active_fraction 0.28, span_tiles 3) truncates
     # this scene: the synthetic sequence's hand (seed 0) occupies up to 275
     # of 784 tiles and has faces wider than 3 tiles, in both packages. The
     # budget is widened until every overflow counter is zero.
-    rcfg = RasterConfig(image_size=448, active_fraction=0.375, cap=448, span_tiles=4)
+    rcfg = (RasterConfig(image_size=IMG, **ARM_BUDGET) if arm else
+            RasterConfig(image_size=IMG, active_fraction=0.375, cap=448, span_tiles=4))
     rng = np.random.RandomState(0)
     params = params_from_numpy({
         "pose": 0.15 * rng.randn(n_frames, 45),
@@ -99,8 +116,8 @@ def flagship(n_frames: int, device):
         "wrist_pose": np.zeros((n_frames, 3)),
         "cam": np.tile([6.0, -0.08, -0.01], (n_frames, 1)),
         "verts_disps": np.zeros((assets.num_render_verts, 1)),
-        "texture": np.full((512, 512, 3), 0.7),
-        "normal_map": np.broadcast_to([0.0, 0.0, 1.0], (512, 512, 3)),
+        "texture": np.full((TEX, TEX, 3), 0.7),
+        "normal_map": np.broadcast_to([0.0, 0.0, 1.0], (TEX, TEX, 3)),
         "light_positions": np.tile([-0.5, -0.5, -0.5], (n_frames, 1)),
         "amb_ratio": np.asarray(0.4),
     }, device)
@@ -140,11 +157,12 @@ def phase_device() -> str:
     return smi
 
 
-def kernel_inputs(dev, n_frames: int):
-    """Every kernel's inputs on the flagship scene, taken from the main
-    path's own functions: camera and light bins, the coverage upstream
-    gradient, the PCF tap updates and the texture gather's rows (keys into
-    the 512^2 corner stack) with an upstream gradient of its 24 channels."""
+def kernel_inputs(dev, n_frames: int, arm: bool = False):
+    """Every kernel's inputs on the flagship scene (of the hand, or of the
+    arm), taken from the main path's own functions: camera and light bins,
+    the coverage upstream gradient, the PCF tap updates and the texture
+    gather's rows (keys into the 512^2 corner stack) with an upstream
+    gradient of its 24 channels."""
     import torch
     from harp_tpu_torch.ops.segment import SegmentOrder
     from harp_tpu_torch.render import pipeline
@@ -157,7 +175,7 @@ def kernel_inputs(dev, n_frames: int):
         _tap_stack, light_raster_config, shadow_cameras,
     )
 
-    assets, config, rcfg, params = flagship(n_frames, dev)
+    assets, config, rcfg, params = flagship(n_frames, dev, arm)
     fids = torch.arange(n_frames, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
@@ -258,12 +276,12 @@ def raster_work(name: str, args, cfg, blocks_per_sm: int) -> dict:
                 blocks_per_sm=blocks_per_sm)
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, arm: bool = False):
     """Each kernel on the card at the main path's shapes (the flagship scene
-    at the step's 18 frames) against its plain version on the same inputs,
-    the fixed-order ones launched twice (the same bits), then timed: ms,
-    plain_ms and library_ms from CUDA events, the bound from these inputs.
-    Returns the per-kernel records."""
+    at the step's 18 frames; with `arm`, the arm's) against its plain
+    version on the same inputs, the fixed-order ones launched twice (the
+    same bits), then timed: ms, plain_ms and library_ms from CUDA events,
+    the bound from these inputs. Returns the per-kernel records."""
     import dataclasses
 
     import torch
@@ -271,7 +289,7 @@ def phase_kernels(dev):
     from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
     from harp_tpu_torch.render.kernels import raster_kernel as rk
 
-    inp = kernel_inputs(dev, B_STEP)
+    inp = kernel_inputs(dev, B_STEP, arm)
     records = []
     occupancy = rk.blocks_per_sm(inp["rcfg"].tile)
 
@@ -422,18 +440,19 @@ def phase_kernels(dev):
                         channels=C, rows=order.num_rows, longest_run=int(counts.max()),
                         blocks_per_sm=sg.blocks_per_sm()))
     for rec in records:
-        emit(dict(phase="kernel", **rec))
+        emit(dict(phase="arm_kernel" if arm else "kernel", **rec))
     return records
 
 
-def phase_vs_cpu(dev):
+def phase_vs_cpu(dev, arm: bool = False):
     """The whole step's losses and gradients on the card (kernels) vs on
     the CPU (plain versions), 2 frames of the synthetic sequence at 448^2:
     loss terms to rtol 1e-4, each gradient leaf within 3e-3 of its largest
     entry, overflow counters equal. The ids are equal on both sides; the
     float32 sums run in other orders in PyTorch's CPU and CUDA kernels, and
     the shadow's sharpness-1000 sigmoid amplifies that noise in the
-    appearance gradients (measured up to 8e-4 on normal_map)."""
+    appearance gradients (measured up to 8e-4 on normal_map). With `arm`,
+    the arm's step."""
     import dataclasses
 
     import torch
@@ -442,7 +461,7 @@ def phase_vs_cpu(dev):
     from harp_tpu_torch.fit.params import init_params
     from harp_tpu_torch.render import pipeline
 
-    assets, config, rcfg, _ = flagship(2, dev)
+    assets, config, rcfg, _ = flagship(2, dev, arm)
     rcfg = dataclasses.replace(rcfg, face_chunk=64)  # bounds the plain pass's memory
     images, masks, masks_er, _, init = make_synthetic_sequence(
         assets, config, rcfg, n_frames=2, seed=0, device=dev)
@@ -465,28 +484,28 @@ def phase_vs_cpu(dev):
                        {k: p.grad.cpu() for k, p in params.items() if p.grad is not None},
                        time.perf_counter() - t0)
     (bg, gg, tg), (bc, gc, tc) = out["cuda"], out["cpu"]
+    rel = {k: float((gg[k] - gc[k]).abs().max()) / max(float(gc[k].abs().max()), 1e-12)
+           for k in gc}
+    emit({"phase": "arm_step_vs_cpu" if arm else "step_vs_cpu", "frames": 2, "loss_terms": bg,
+          "grad_rel_err": rel, "card_s": tg, "cpu_s": tc})
     for k in bc:
         if not np.isclose(bg[k], bc[k], rtol=1e-4, atol=1e-7):
             fail(f"step vs CPU: loss term {k}: {bg[k]} on the card, {bc[k]} on the CPU")
-    rel = {}
     for k in gc:
-        scale = float(gc[k].abs().max())
-        rel[k] = float((gg[k] - gc[k]).abs().max()) / max(scale, 1e-12)
         if rel[k] > 3e-3:
             fail(f"step vs CPU: gradient {k} rel err {rel[k]}")
-    emit({"phase": "step_vs_cpu", "frames": 2, "loss_terms": bg,
-          "grad_rel_err": rel, "card_s": tg, "cpu_s": tc})
 
 
-def flagship_sequence(dev) -> dict:
-    """The flagship fit's 18-frame synthetic sequence, rendered by the port
-    (K1) and checked: finite images, masks covering part of each frame."""
+def flagship_sequence(dev, arm: bool = False) -> dict:
+    """The flagship fit's 18-frame synthetic sequence (of the hand, or of
+    the arm), rendered by the port (K1) and checked: finite images, masks
+    covering part of each frame."""
     import torch
     from harp_tpu_torch.data.synthetic import make_synthetic_sequence
 
-    assets, config, rcfg, _ = flagship(B_STEP, dev)
+    assets, config, rcfg, _ = flagship(B_STEP, dev, arm)
     t0 = time.perf_counter()
-    images, masks, masks_er, _, init = make_synthetic_sequence(
+    images, masks, masks_er, gt, init = make_synthetic_sequence(
         assets, config, rcfg, n_frames=B_STEP, seed=0, device=dev)
     torch.cuda.synchronize()
     gt_s = time.perf_counter() - t0
@@ -495,7 +514,7 @@ def flagship_sequence(dev) -> dict:
             and 0 < float(masks.mean()) < 0.5):
         fail("synthetic sequence: bad images or masks")
     return dict(assets=assets, config=config, rcfg=rcfg, images=images, masks=masks,
-                masks_er=masks_er, init=init, gt_render_s=gt_s)
+                masks_er=masks_er, gt=gt, init=init, gt_render_s=gt_s)
 
 
 def reset_launches() -> None:
@@ -516,7 +535,8 @@ def read_launches() -> dict:
     return dict(rk.LAUNCHES, **pk.LAUNCHES, **sg.LAUNCHES)
 
 
-def expected_launches(n2: int, n1: int, n3: int) -> dict:
+def expected_launches(n2: int, n1: int, n3: int, tex_reg: bool = True,
+                      joint_gather: bool = False) -> dict:
     """Kernel launches of n2 stage-2, n1 stage-1 and n3 stage-3 train steps.
     K1 soft and K2 run in stages 1 and 2; K1 depth-only for the light in
     stages 2 and 3 and for the camera in stage 3; K3 in stages 2 and 3.
@@ -526,10 +546,14 @@ def expected_launches(n2: int, n1: int, n3: int) -> dict:
     texture regularisers), one in stage 1 (the displacement's vertex
     normals), and one more wherever K2 runs (its vertex scatter). K3 sums
     its taps in fixed point in its own kernel and calls no segment_sum; the
-    VGG term launches none of them."""
+    VGG term launches none of them. HTML and NIMBLE have no texture
+    regularisers (tex_reg=False: two fewer in stages 2 and 3); the arm's
+    keypoint loss reaches its repeated extra-joint gather (joint_gather:
+    one more in stages 1 and 2)."""
     return {"raster_ids_soft": n2 + n1, "raster_ids_depth": n2 + 2 * n3,
             "coverage_grad": n2 + n1, "pcf_scatter": n2 + n3,
-            "segment_sum": 8 * (n2 + n3) + n1 + (n2 + n1)}
+            "segment_sum": (8 if tex_reg else 6) * (n2 + n3) + n1 + (n2 + n1)
+            + (n2 + n1 if joint_gather else 0)}
 
 
 def vgg_setup(seq, dev, compute_dtype: str):
@@ -551,19 +575,20 @@ def vgg_setup(seq, dev, compute_dtype: str):
     return config, vgg, aux, time.perf_counter() - t0
 
 
-def phase_step(dev, seq, vgg_dtype: str | None = None):
+def phase_step(dev, seq, vgg_dtype: str | None = None, arm: bool = False):
     """The fit step at 18 frames, 448^2 (without VGG, or with it in
     vgg_dtype from the cached GT pyramids): two stage-2 train steps from
     one state, whose gradients and updated parameters must be the same
     bits; then stage-2, stage-1 and stage-3 steps with launch counts,
     times and peak memory; one profiled stage-2 step. The texture-reg
-    offsets come from the fit's key stream, as in fit_sequence."""
+    offsets come from the fit's key stream, as in fit_sequence. With `arm`,
+    the arm's step (harp_tpu's value_arm_b18 without VGG)."""
     import torch
     from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, _key_stream_np, make_train_step
     from harp_tpu_torch.fit.params import init_params
     from harp_tpu_torch.render import pipeline
 
-    label = "vgg_step" if vgg_dtype else "step"
+    label = ("arm_" if arm else "") + ("vgg_step" if vgg_dtype else "step")
     assets, config, rcfg = seq["assets"], seq["config"], seq["rcfg"]
     images, masks, masks_er, init = seq["images"], seq["masks"], seq["masks_er"], seq["init"]
     vgg, extra = None, {}
@@ -615,7 +640,7 @@ def phase_step(dev, seq, vgg_dtype: str | None = None):
             fail(f"{label}: the VGG term is {'missing' if vgg else 'present'}")
     launches = read_launches()
     n2, n1, n3 = (plan.count(f) for f in ((True, True), (True, False), (False, True)))
-    expected = expected_launches(n2, n1, n3)
+    expected = expected_launches(n2, n1, n3, joint_gather=arm)
     if launches != expected:
         fail(f"{label}: launch counts {launches}, expected {expected}")
     step_ms = float(np.median(times[3:n2])) * 1e3  # the first steps warm up
@@ -849,6 +874,183 @@ def phase_fit(dev, seq) -> dict:
     return out["launches"]
 
 
+def phase_arm_budget(dev, seq) -> None:
+    """The arm sequence's raster counters on the card, at harp_tpu's CLI
+    defaults (active 0.28, span 3, cap 448) and at ARM_BUDGET: the ground
+    truth's and the initial parameters' meshes, camera (448^2) and light
+    (224^2) binnings only. Fails unless ARM_BUDGET's are all 0."""
+    import dataclasses
+
+    import torch
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.render import camera as cam_mod
+    from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.render.rasterizer import RasterConfig, active_budget, bin_pairs
+    from harp_tpu_torch.render.shadow import light_raster_config, shadow_cameras
+
+    assets, config = seq["assets"], seq["config"]
+    faces = torch.as_tensor(assets.render_faces.astype(np.int64), device=dev)
+    params, _ = init_params(seq["init"], assets, config, device=dev)
+    fids = torch.arange(B_STEP, device=dev)
+    out = {}
+    for budget, rcfg in (("cli_defaults", RasterConfig(image_size=IMG, active_fraction=0.28,
+                                                       span_tiles=3, cap=448)),
+                         ("arm_budget", seq["rcfg"])):
+        for which, p in (("gt", dict(params, pose=seq["gt"]["pose"], rot=seq["gt"]["rot"],
+                                     shape=seq["gt"]["shape"])), ("init", params)):
+            with torch.no_grad():
+                verts, _ = pipeline.mesh_forward(p, fids, assets, config)
+                R, T = pipeline.camera_for_frames(p, fids, config)
+                light = p["light_positions"][fids]
+                lR, lT, _, _ = shadow_cameras(p["cam"][fids], light, verts.mean(1), config)
+                rl = light_raster_config(rcfg, config.shadow_map_scale)
+                for view, cfg, screen in (
+                        ("camera", rcfg, cam_mod.screen_from_world(
+                            verts, R, T, config.focal_length, config.img_size)),
+                        ("light", rl, cam_mod.screen_from_world(
+                            verts, lR, lT, config.focal_length * rl.image_size / config.img_size,
+                            rl.image_size))):
+                    b = bin_pairs(screen[:, faces], cfg)
+                    cr = b["counts_rep"]
+                    out[f"{budget}/{which}/{view}"] = {
+                        "bin_overflow": int((cr > cfg.cap).sum()),
+                        "active_overflow": int((cr > 0).sum(-1).sub(active_budget(cfg))
+                                               .clamp(min=0).sum()),
+                        "span_overflow": int(b["span_cnt"].sum()),
+                        "occupied_tiles_max": int((cr > 0).sum(-1).max()),
+                        "active_tiles": active_budget(cfg),
+                        "faces_per_tile_max": int(b["counts"].max())}
+    emit({"phase": "arm_budget", "arm_budget": dataclasses.asdict(seq["rcfg"]), **out})
+    bad = {k: v for k, v in out.items() if k.startswith("arm_budget")
+           and (v["bin_overflow"] or v["active_overflow"] or v["span_overflow"])}
+    if bad:
+        fail(f"arm_budget: ARM_BUDGET truncates the arm sequence: {bad}")
+
+
+def phase_zoo_step(dev) -> None:
+    """One stage-2 step of HTML (texture basis of 101 coefficients at
+    512^2, in extras) and one of NIMBLE at 448^2, B18, texture 512, on
+    their 18-frame synthetic sequences (ZOO_BUDGET): each run twice from one
+    state, whose gradients and updated parameters must be the same bits;
+    every overflow counter 0; each kernel launched as the two steps need."""
+    import torch
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, _key_stream_np, make_train_step
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.models.zoo import load_hand_model
+    from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.render.rasterizer import RasterConfig
+
+    out = {}
+    for family in ("html", "nimble"):
+        config = HarpConfig(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
+                            model_type=family, self_shadow=True, w_vgg=0.0, batch_size=B_STEP)
+        rcfg = RasterConfig(image_size=IMG, **ZOO_BUDGET)
+        t0 = time.perf_counter()
+        assets, extras = load_hand_model(config, synthetic=True)
+        setup_s = time.perf_counter() - t0
+        images, masks, masks_er, _, init = make_synthetic_sequence(
+            assets, config, rcfg, n_frames=B_STEP, seed=0, device=dev)
+        params, aux = init_params(init, assets, config, device=dev)
+        fids = torch.arange(B_STEP, device=dev)
+        with torch.no_grad():
+            ref_verts = pipeline.mesh_forward(params, fids[:1], assets, config)[0][0]
+        key = _key_stream_np(0, 1)[0]
+        runs, times = [], []
+        reset_launches()
+        for _ in range(2):
+            ps = {k: p.detach().clone().requires_grad_(True) for k, p in params.items()}
+            step = make_train_step(assets, config, rcfg, ps, device=dev, extras=extras)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total, br = step(aux, fids, images, masks, masks_er, ref_verts, coarse_on=True,
+                             app_on=True, key=key)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            over = {k: float(br[k]) for k in OVERFLOW_KEYS}
+            if any(over.values()) or not np.isfinite(float(total)):
+                fail(f"zoo_step {family}: loss {float(total)}, overflow {over}")
+            runs.append(({k: (p.grad.clone(), p.detach().clone()) for k, p in ps.items()
+                          if p.grad is not None}, float(total)))
+        launches = read_launches()
+        expected = expected_launches(2, 0, 0, tex_reg=False)
+        if launches != expected:
+            fail(f"zoo_step {family}: launch counts {launches}, expected {expected}")
+        spread = {k: float((g - runs[1][0][k][0]).abs().max()) for k, (g, _) in runs[0][0].items()}
+        pspread = {k: float((p - runs[1][0][k][1]).abs().max())
+                   for k, (_, p) in runs[0][0].items()}
+        if any(spread.values()) or any(pspread.values()) or runs[0][1] != runs[1][1]:
+            fail(f"zoo_step {family}: two steps from one state differ: gradients {spread}, "
+                 f"parameters {pspread}, losses {runs[0][1]} {runs[1][1]}")
+        moved = sorted(k for k, (_, p) in runs[0][0].items() if not torch.equal(p, params[k]))
+        want = "html_texture" if family == "html" else "texture"
+        if want not in moved:
+            fail(f"zoo_step {family}: {want} did not move ({moved})")
+        out[family] = {"render_verts": assets.num_render_verts,
+                       "faces": int(len(assets.render_faces)), "setup_s": setup_s,
+                       "loss": runs[0][1], "terms": sorted(br), "step_ms": times,
+                       "launches": launches, "moved": moved,
+                       "grad_run_to_run_max_abs": spread, "param_run_to_run_max_abs": pspread}
+        del runs, params, aux, extras
+    emit({"phase": "zoo_step", "frames": B_STEP, "img": IMG, "budget": ZOO_BUDGET, **out})
+
+
+def phase_arm_fit(dev) -> None:
+    """The arm fit through the CLI, as a user runs it:
+    harp_tpu_torch.fit_avatar.main(["--synthetic", "--use-arm", ...]) at
+    448^2, 18 frames, stages 2 / 2 / 2 with VGG (bf16, cached GT) and the
+    CLI's raster budget for the arm (which must be ARM_BUDGET), then its
+    evaluation. The loss must fall, every overflow
+    counter of every epoch be 0, every kernel be launched, and IoU / L1 /
+    MS-SSIM come out finite."""
+    import contextlib
+    import io
+    import tempfile
+
+    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS
+    from harp_tpu_torch.fit_avatar import main as fit_avatar
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--use-arm", "--img-size", str(IMG), "--n-frames", str(B_STEP),
+                "--texture-size", str(TEX), "--stages", "2", "2", "2", "--epochs", "6",
+                "--out", tmp]
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the CLI prints its summary
+            stats = fit_avatar(argv)
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            epochs = [r for r in map(json.loads, f) if "loss" in r]
+        with open(os.path.join(tmp, "config.yaml")) as f:
+            cli_cfg = f.read()
+        n_png = len(os.listdir(os.path.join(tmp, "rendered_after_opt")))
+    losses = [r["loss"] for r in epochs]
+    counters = {k: max(r.get(k, 0.0) for r in epochs) for k in OVERFLOW_KEYS}
+    missing = [k for k in OVERFLOW_KEYS if k not in epochs[2]]
+    unused = [k for k, v in launches.items() if v == 0]
+    record = {"phase": "arm_fit", "argv": argv, "epoch_losses": losses,
+              "overflow_max": counters, "launches": launches, "cli_wall_s": wall_s,
+              "eval_pngs": n_png, **{k: stats.get(k) for k in (
+                  "Silhouette IoU", "L1", "MS_SSIM", "LPIPS_proxy", "fit_wall_s",
+                  "eval_wall_s", "final_loss", "device")}}
+    emit(record)
+    if len(losses) != 6 or not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"arm_fit: epoch losses {losses}")
+    if missing or any(counters.values()):
+        fail(f"arm_fit: overflow counters missing {missing} or non-zero {counters}")
+    if unused:
+        fail(f"arm_fit: kernels never launched: {unused}")
+    budget = {"raster_active_fraction": ARM_BUDGET["active_fraction"],
+              "raster_span_tiles": ARM_BUDGET["span_tiles"], "raster_cap": ARM_BUDGET["cap"]}
+    if any(f"{k}: {v}" not in cli_cfg for k, v in budget.items()):
+        fail(f"arm_fit: the CLI's raster budget is not {budget}:\n{cli_cfg}")
+    if not (0.0 < stats["Silhouette IoU"] <= 1.0 and 0.0 < stats["MS_SSIM"] <= 1.0
+            and np.isfinite(stats["L1"]) and n_png == B_STEP):
+        fail(f"arm_fit: eval {stats}, {n_png} composites")
+
+
 def phase_segment_sum_shapes(run_step, per_step: int) -> None:
     """segment_sum at every call site of one stage-2 step: each call's
     (M, C, R, longest run of one key) with its device time (torch.profiler,
@@ -936,6 +1138,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # cuBLAS with a fixed workspace (read when its handle is made): the
+    # products give the same bits from run to run (HTML's basis texture).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     # Full float32 products and convolutions (the JAX reference's precision).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -954,10 +1159,26 @@ def main() -> int:
     launches, _ = phase_step(dev, seq, vgg_dtype="bfloat16")
     phase_vgg_f32(dev, seq)
     phase_fit(dev, seq)
-    for rec in records:
-        rec["launches"] = launches[rec["name"]]
+    del seq
+    # The SMPL-X arm at reference density (harp_tpu's value_arm_b18), then
+    # HTML and NIMBLE; each path's launches read from its own run.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    arm_records = phase_kernels(dev, arm=True)
+    arm_seq = flagship_sequence(dev, arm=True)
+    phase_arm_budget(dev, arm_seq)
+    arm_launches, _ = phase_step(dev, arm_seq, arm=True)
+    phase_step(dev, arm_seq, vgg_dtype="bfloat16", arm=True)
+    del arm_seq
+    # The kernels at the arm's shapes, with the launches of its no-VGG step.
+    emit({"phase": "arm_kernels", "kernels": [dict({k: rec[k] for k in keys if k != "launches"},
+                                                   launches=arm_launches[rec["name"]])
+                                              for rec in arm_records]})
+    phase_zoo_step(dev)
+    phase_arm_fit(dev)
+    phase_vs_cpu(dev, arm=True)
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

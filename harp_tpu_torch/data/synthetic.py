@@ -1,6 +1,6 @@
 """Synthetic ground-truth sequences (harp_tpu/data/synthetic.py).
 
-Renders the hand with known parameters through the port's own pipeline
+Renders the model with known parameters through the port's own pipeline
 (K1 on CUDA) and returns a perturbed initialisation, standing in for the
 preprocessing output. The parameters come from the same numpy RandomState
 stream as harp_tpu's, so both packages fit the same scene.
@@ -38,7 +38,9 @@ def make_synthetic_sequence(assets, config, rcfg: RasterConfig,
     rng = np.random.RandomState(seed)
     ts = config.texture_size
     V = assets.num_render_verts
-    P = assets.model.ncomps
+    # Parameter widths follow the model family: MANO and the arm 45-dof
+    # pose / 10 shape, NIMBLE 30 PCA pose / 20 shape.
+    P = getattr(assets.model, "ncomps", 45)
     S = assets.model.shapedirs.shape[2]
 
     t = np.linspace(0, 1, n_frames)[:, None]

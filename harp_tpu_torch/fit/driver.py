@@ -1,12 +1,14 @@
 """The fit (harp_tpu/fit/driver.py: compute_losses, _grad_step,
 make_train_step, stage_flags, FitData, fit_sequence, the key stream).
 
-One step: MANO forward, subdivision and displacement; one compact camera
+One step: the model's forward (MANO, the SMPL-X arm or NIMBLE),
+subdivision and displacement; one compact camera
 rasterization (K1, soft + hard); silhouette alpha (backward K2); shared
 per-pixel geometry; the light's depth-only raster (K1) and 3x3 PCF
 (backward K3); Phong shading; the silhouette, keypoint, geometry,
 photometric, VGG perceptual (cuDNN convolutions) and texture losses;
-backward; the two Adam groups.
+backward; the two Adam groups. For HTML the texture is its basis's
+(extras["texture_basis"]) at the fitted coefficients.
 
 fit_sequence runs the staged epochs with harp_tpu's numpy RandomState
 minibatch permutations and threefry key stream, so a fit sees the same
@@ -156,11 +158,24 @@ def texture_reg_offsets(sub: np.ndarray, H: int, W: int, device):
 # ---------------------------------------------------------------------------
 
 
+def appearance_texture(params: dict, config, extras: dict | None = None) -> torch.Tensor:
+    """The UV texture the renders take: HTML's basis texture at the
+    fitted coefficients, else the free texel grid params["texture"]."""
+    if config.model_type == "html" and extras and "texture_basis" in extras:
+        return extras["texture_basis"].texture(params["html_texture"])
+    return params["texture"]
+
+
 def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
                    assets, config, rcfg: RasterConfig, ref_verts,
                    coarse_on: bool, app_on: bool, generator=None,
-                   offsets=None, vgg: Vgg16Features | None = None, key=None):
+                   offsets=None, vgg: Vgg16Features | None = None, key=None,
+                   extras: dict | None = None):
     """All fitting losses for one minibatch -> (total, breakdown).
+
+    extras: the model family's statics ({"texture_basis": TextureBasis}
+    for HTML). NIMBLE has no keypoint anchor; NIMBLE and HTML have no
+    albedo or normal-map regulariser (and draw no offsets for them).
 
     Texture-reg neighbour offsets: `offsets` (albedo, normal_reg) (H, W, 2)
     when given; else drawn from `key`, the step's harp_tpu subkey (two
@@ -183,7 +198,7 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
         # mean |alpha - m| over the full image; inactive tiles: alpha = 0.
         losses["silhouette"] = (
             jnp_abs(alpha_c - m_c).sum() + batch_masks.sum() - m_c.sum()) / n_px
-        if not config.known_appearance:
+        if not config.known_appearance and config.model_type != "nimble":
             losses["kps_anchor"] = kps_anchor_loss(aux["init_joints"][fids], joints,
                                                    use_arm=config.use_arm)
         if config.use_vert_disp and not config.known_appearance:
@@ -194,7 +209,7 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
 
     light_counts = None
     if app_on:
-        texture = params["texture"]
+        texture = appearance_texture(params, config, extras)
         if config.share_light_position:
             light = params["light_positions"][0].expand(fids.shape[0], 3)
         else:
@@ -234,14 +249,15 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
                 losses["vgg"] = vgg_feature_l1(vgg, rgb * m, batch_imgs * m,
                                                chunk=config.vgg_chunk,
                                                remat=config.vgg_remat)
-        if offsets is None and key is not None:
-            offsets = texture_reg_offsets(key, texture.shape[0], texture.shape[1],
-                                          texture.device)
-        off_a, off_n = offsets if offsets is not None else (None, None)
-        losses["albedo"] = albedo_reg(params["texture"], generator, std=1.0,
-                                      uv_mask=aux["uv_mask"], offsets=off_a)
-        losses["normal_reg"] = normal_reg(params["normal_map"], generator,
-                                          uv_mask=aux["uv_mask"], offsets=off_n)
+        if config.model_type not in ("nimble", "html"):
+            if offsets is None and key is not None:
+                offsets = texture_reg_offsets(key, texture.shape[0], texture.shape[1],
+                                              texture.device)
+            off_a, off_n = offsets if offsets is not None else (None, None)
+            losses["albedo"] = albedo_reg(params["texture"], generator, std=1.0,
+                                          uv_mask=aux["uv_mask"], offsets=off_a)
+            losses["normal_reg"] = normal_reg(params["normal_map"], generator,
+                                              uv_mask=aux["uv_mask"], offsets=off_n)
 
     weights = {
         "silhouette": config.w_silhouette, "kps_anchor": config.w_kps_anchor,
@@ -276,12 +292,14 @@ class TrainStep:
     the forward and the backward."""
 
     def __init__(self, assets, config, rcfg: RasterConfig, params: dict,
-                 device=None, vgg: Vgg16Features | None = None):
+                 device=None, vgg: Vgg16Features | None = None,
+                 extras: dict | None = None):
         self.device = resolve_device(device)
         for k, v in params.items():
             if v.device.type != self.device.type:
                 raise ValueError(f"param {k} is on {v.device}, the step on {self.device}")
         self.assets, self.config, self.rcfg, self.vgg = assets, config, rcfg, vgg
+        self.extras = extras
         self.params = params
         self.optimizers = build_optimizers(params, config)
 
@@ -295,7 +313,8 @@ class TrainStep:
                 self.params, aux, fids, decode_frames(batch_imgs),
                 decode_frames(batch_masks), decode_frames(batch_masks_er),
                 self.assets, self.config, self.rcfg, ref_verts, coarse_on, app_on,
-                generator=generator, offsets=offsets, vgg=self.vgg, key=key)
+                generator=generator, offsets=offsets, vgg=self.vgg, key=key,
+                extras=self.extras)
             total.backward()
         for name, on in (("coarse", coarse_on), ("app", app_on)):
             if not on:
@@ -312,9 +331,10 @@ class TrainStep:
 
 
 def make_train_step(assets, config, rcfg: RasterConfig, params: dict,
-                    device=None, vgg: Vgg16Features | None = None) -> TrainStep:
+                    device=None, vgg: Vgg16Features | None = None,
+                    extras: dict | None = None) -> TrainStep:
     """The train step over `params` on `device` (CUDA unless given)."""
-    return TrainStep(assets, config, rcfg, params, device=device, vgg=vgg)
+    return TrainStep(assets, config, rcfg, params, device=device, vgg=vgg, extras=extras)
 
 
 def stage_flags(epoch: int, config):
@@ -339,7 +359,7 @@ def _refuse(**tunnel_args) -> None:
         raise NotImplementedError(
             f"fit_sequence options {on} are not ported (harp_tpu's mesh sharding, "
             "epoch scans and AOT prefetch have no counterpart; image / val logs "
-            "wait for render_360; model extras for the arm and zoo models)")
+            "wait for render_360)")
 
 
 def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
@@ -365,21 +385,22 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
 
     The GT VGG pyramids are cached once, before the first appearance epoch,
     when config.vgg_cache_gt and the sequence has at most
-    vgg_cache_max_frames frames. Runs on CUDA unless device is given."""
+    vgg_cache_max_frames frames. extras: the model family's statics (HTML's
+    texture basis), as compute_losses takes them. Runs on CUDA unless
+    device is given."""
     from harp_tpu_torch.utils.io import save_checkpoint, save_result
     from harp_tpu_torch.utils.profiling import MetricsLogger
 
     _refuse(image_log_every=image_log_every, val_data=val_data,
             val_params=val_params, mesh=mesh, epoch_scan=epoch_scan > 1,
-            prefetch_compile=prefetch_compile, prefetch_extra=prefetch_extra,
-            extras=extras)
+            prefetch_compile=prefetch_compile, prefetch_extra=prefetch_extra)
     t0 = time.perf_counter()
     dev = resolve_device(device)
     rcfg = rcfg or config.raster_config()
     if vgg is None and config.w_vgg > 0:
         vgg = Vgg16Features.create(weights_path=config.vgg_weights or None,
                                    compute_dtype=config.vgg_compute_dtype, device=dev)
-    step = make_train_step(assets, config, rcfg, params, device=dev, vgg=vgg)
+    step = make_train_step(assets, config, rcfg, params, device=dev, vgg=vgg, extras=extras)
     logger = MetricsLogger(out_dir) if out_dir is not None else None
 
     if resume is not None and "ref_verts" in (resume.get("extra") or {}):

@@ -26,7 +26,7 @@ from harp_tpu_torch.device import deterministic_convolutions, resolve_device
 from harp_tpu_torch.eval.metrics import (
     align_w_scale, iou_per_frame, l1_per_frame, ms_ssim_per_frame, perceptual_per_frame,
 )
-from harp_tpu_torch.fit.driver import FitData, decode_frames
+from harp_tpu_torch.fit.driver import FitData, appearance_texture, decode_frames
 from harp_tpu_torch.losses.perceptual import Vgg16Features
 from harp_tpu_torch.render import pipeline
 from harp_tpu_torch.render.rasterizer import RasterConfig
@@ -42,9 +42,11 @@ def load_gt_vert(frame_idx: int, gt_mesh_dir: str, start_from_one: bool = True,
     return np.loadtxt(os.path.join(gt_mesh_dir, f"{num}_manov.xyz")) / 1000.0
 
 
-def _render_frame_batch(params, fids, assets, config, rcfg, counters=None):
+def _render_frame_batch(params, fids, assets, config, rcfg, counters=None, extras=None):
     """(verts, alpha, rgb, normal_img) of frames `fids`; counters: see
-    rasterizer.add_overflow."""
+    rasterizer.add_overflow; extras: the model family's (HTML's texture
+    basis gives the texture)."""
+    texture = appearance_texture(params, config, extras)
     verts, _ = pipeline.mesh_forward(params, fids, assets, config)
     R, T = pipeline.camera_for_frames(params, fids, config)
     if config.share_light_position:
@@ -54,10 +56,10 @@ def _render_frame_batch(params, fids, assets, config, rcfg, counters=None):
     alpha = pipeline.render_silhouette(verts, assets, R, T, config, rcfg, counters)
     if config.self_shadow:
         rgb = render_rgb_with_shadow(verts, assets, config, rcfg, params["cam"][fids],
-                                     light, params["amb_ratio"], params["texture"],
+                                     light, params["amb_ratio"], texture,
                                      params["normal_map"], counters)
     else:
-        rgb = pipeline.render_rgb(verts, assets, R, T, config, rcfg, params["texture"],
+        rgb = pipeline.render_rgb(verts, assets, R, T, config, rcfg, texture,
                                   params["normal_map"], light, counters)
     normal_img = pipeline.render_normal(verts, assets, R, T, config, rcfg,
                                         params.get("normal_map"), counters)
@@ -68,12 +70,13 @@ def evaluate_sequence(config, assets, data: FitData, params: dict, aux: dict,
                       rcfg: RasterConfig | None = None, out_dir: str | None = None,
                       vgg: Vgg16Features | None = None, render_batch: int = 8,
                       save_images: bool = True, turntables: bool = False,
-                      device=None) -> dict:
+                      device=None, extras: dict | None = None) -> dict:
     """Metrics of the fitted `params` on `data` -> {"Silhouette IoU", "L1",
     "LPIPS_proxy" (or "LPIPS" with pretrained VGG weights), "MS_SSIM",
     the overflow counters, timings}. The metrics run in float32 with TF32
     off; frames go in groups of the largest divisor of n <= render_batch.
-    Runs on CUDA unless device is given."""
+    extras: the model family's statics (HTML's texture basis). Runs on
+    CUDA unless device is given."""
     if turntables:
         raise NotImplementedError("turntables wait for render_360, not ported yet")
     dev = resolve_device(device)
@@ -95,7 +98,7 @@ def evaluate_sequence(config, assets, data: FitData, params: dict, aux: dict,
         for s in range(0, n, g):
             fids = torch.arange(s, s + g, device=dev)
             verts, alpha, rgb, normal_img = _render_frame_batch(
-                params, fids, assets, config, rcfg, counters)
+                params, fids, assets, config, rcfg, counters, extras)
             gt_img = decode_frames(data.images[fids])
             gt_mask = decode_frames(data.masks[fids])
             metrics.append(torch.stack([
@@ -119,7 +122,11 @@ def evaluate_sequence(config, assets, data: FitData, params: dict, aux: dict,
         vert_errs = []
         for f in range(n):
             gt_v = load_gt_vert(f, config.gt_mesh_dir)
-            aligned = align_w_scale(gt_v, verts_np[f, :gt_v.shape[0]])
+            if config.use_arm:  # the arm mesh's MANO vertices
+                pred_v = verts_np[f, np.asarray(assets.model.mano_vert_from_arm)]
+            else:
+                pred_v = verts_np[f, :gt_v.shape[0]]
+            aligned = align_w_scale(gt_v, pred_v)
             vert_errs.append(float(np.linalg.norm(gt_v - aligned, axis=1).mean() * 1000.0))
         final["Procrustes-aligned vertex error (mm)"] = float(np.mean(vert_errs))
         os.makedirs(out_dir, exist_ok=True)
@@ -130,7 +137,9 @@ def evaluate_sequence(config, assets, data: FitData, params: dict, aux: dict,
         comps = torch.cat(comps).numpy()
         viz.save_images_parallel((comps[f], os.path.join(img_dir, "%04d.png" % f))
                                  for f in range(n))
-        viz.save_texture_maps(params, aux.get("uv_mask"), out_dir)
+        with torch.no_grad():
+            texture = appearance_texture(params, config, extras)
+        viz.save_texture_maps(params, aux.get("uv_mask"), out_dir, texture=texture)
         export_obj(os.path.join(out_dir, "uv_out", "final_mesh" + test_name + ".obj"),
                    verts_np[0], assets.render_faces, verts_uvs=assets.verts_uvs,
                    faces_uvs=assets.faces_uvs,

@@ -2,7 +2,8 @@
 
 - "coarse" (lr_pose, scaled by the plateau schedule): pose, cam, shape,
   verts_disps.
-- "app" (lr_app): light_positions, amb_ratio, texture, normal_map.
+- "app" (lr_app): light_positions, amb_ratio, texture, normal_map (for
+  HTML its texture-basis coefficients html_texture in their place).
 
 trans, rot and wrist_pose belong to neither group and never move, as
 harp_tpu's optax.masked + set_to_zero leave them. Each group is its own
@@ -28,7 +29,10 @@ def group_param_names(config):
             coarse += ["verts_disps"]
     app = ["light_positions", "amb_ratio"]
     if not config.known_appearance:
-        app += ["texture", "normal_map"]
+        if config.model_type == "html":
+            app += ["html_texture"]  # linear basis coefficients, not free texels
+        else:
+            app += ["texture", "normal_map"]
     return {"coarse": coarse, "app": app}
 
 

@@ -36,6 +36,9 @@ def init_params(input_params: dict, assets, config, device=None):
         "light_positions": t(np.broadcast_to([-0.5, -0.5, -0.5], (n, 3))),
         "amb_ratio": t(0.4),
     }
+    if config.model_type == "html":
+        # HTML's appearance: the 101 coefficients of its texture basis.
+        params["html_texture"] = t(np.zeros(101))
     params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
     aux = {
         "init_joints": t(input_params["joints"]),

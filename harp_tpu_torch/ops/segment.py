@@ -15,6 +15,8 @@ gradient is the same bits from run to run.
 - segment_sum(values, order): the kernel's wrapper; out[r] = sum of
   values[j] over key[j] == r.
 - gather_rows(table, order): table[key], whose backward is segment_sum.
+- gather_table(x, table): x[:, index] for a constant, possibly repeating
+  index table, through gather_rows with the table's sort.
 - sum_rows(values, order): segment_sum, whose backward is a gather.
 - TableOrder: a constant index table (a face table's corners) and its
   stable sort, made once per table (MeshTopology.corners); batched() lays
@@ -190,3 +192,13 @@ def sum_rows(values: torch.Tensor, order: SegmentOrder) -> torch.Tensor:
     """segment_sum(values, order), differentiable: the backward gathers
     each entry's row of the upstream gradient."""
     return _SumRows.apply(values, order)
+
+
+def gather_table(x: torch.Tensor, table: TableOrder) -> torch.Tensor:
+    """x (B, R, C) at a constant index table's rows -> (B, M, C), x[:,
+    table.key]; the backward sums repeated rows in the table's fixed order."""
+    B, R, C = x.shape
+    if R != table.num_rows:
+        raise ValueError(f"x has {R} rows, the table indexes {table.num_rows}")
+    rows = gather_rows(x.reshape(B * R, C), table.batched(B, x.device))
+    return rows.reshape(B, -1, C)

@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 
 from harp_tpu_torch.models.mano import mano_forward
+from harp_tpu_torch.models.nimble import mano_protocol_joints, nimble_forward, nimble_to_mano
+from harp_tpu_torch.models.smplx_arm import smplx_arm_forward
 from harp_tpu_torch.ops.mesh import apply_subdivision, vertex_normals
 from harp_tpu_torch.ops.numerics import safe_normalize
 from harp_tpu_torch.render import camera as cam_mod
@@ -18,17 +20,25 @@ from harp_tpu_torch.render.rasterizer import (
 
 
 def mesh_forward(params: dict, fids: torch.Tensor, assets, config):
-    """Pose the MANO model, subdivide, displace along the vertex normals.
-    Returns (verts (B, V_render, 3) metres, joints (B, 21, 3) mm)."""
-    if config.use_arm or config.model_type != "harp":
-        raise NotImplementedError("the port has the MANO hand model only")
+    """Pose the model (NIMBLE, the SMPL-X arm or MANO), subdivide, displace
+    along the vertex normals. Returns (verts (B, V_render, 3) metres,
+    joints (B, J, 3) mm: 21 in MANO order, 22 for the arm with its elbow)."""
     B = fids.shape[0]
     pose = params["pose"][fids]
     rot = params["rot"][fids]
     trans = params["trans"][fids]
     shape = params["shape"][None].expand(B, -1)
-    verts_mm, joints_mm = mano_forward(assets.model, torch.cat([rot, pose], 1),
-                                       shape, trans)
+    if config.model_type == "nimble":
+        verts_mm, _ = nimble_forward(assets.model, torch.cat([rot, pose], 1), shape, trans)
+        # The keypoint convention of every family: MANO joints of the
+        # regressed MANO surface.
+        joints_mm = mano_protocol_joints(assets.model, nimble_to_mano(assets.model, verts_mm))
+    elif config.use_arm:
+        verts_mm, joints_mm = smplx_arm_forward(assets.model, shape, rot, trans, pose,
+                                                params["wrist_pose"][fids])
+    else:
+        verts_mm, joints_mm = mano_forward(assets.model, torch.cat([rot, pose], 1),
+                                           shape, trans)
     verts = verts_mm / 1000.0
     if assets.subdivision is not None:
         verts = apply_subdivision(assets.subdivision, verts)

@@ -41,18 +41,28 @@ def light_raster_config(raster_cfg: RasterConfig, scale: float,
 
 def shadow_cameras(cam, light_positions, hand_center, config):
     """(light_R, light_T, cam_R, cam_T) for the shadow pass; cam (B, 3)
-    weak-perspective params, light_positions / hand_center (B, 3) world."""
+    weak-perspective params, light_positions / hand_center (B, 3) world.
+
+    The light camera is computed in float64 and returned in the inputs'
+    dtype: the light sits at shadow_light_radius from the hand centre,
+    looking at it, so the gradient of a light position is the small
+    difference of large parts through the light's translation and
+    rotation, which float32 loses: on the synthetic arm's scene the float32
+    gradient moved with the CPU's and CUDA's rounding orders by more than
+    the card-vs-CPU tolerance of chip_smoke.py."""
     cam_T = cam_mod.weak_perspective_to_translation(cam, config.focal_length,
                                                     config.img_size)
     B = cam.shape[0]
     cam_R = torch.as_tensor(cam_mod.OPENCV_TO_P3D_R, device=cam.device).expand(B, 3, 3)
+    dtype = light_positions.dtype
+    light_positions, hand_center = light_positions.double(), hand_center.double()
     delta = light_positions - hand_center
     light_pos = hand_center + delta * (
         config.shadow_light_radius
         / torch.clamp(safe_norm(delta, dim=1, keepdim=True), min=1e-9))
     light_R = cam_mod.look_at_rotation(light_pos, at=hand_center)
     light_T = cam_mod.translation_for_position(light_R, light_pos)
-    return light_R, light_T, cam_R, cam_T
+    return light_R.to(dtype), light_T.to(dtype), cam_R, cam_T
 
 
 def _tap_stack(depth_light, x, y):

@@ -1,7 +1,8 @@
 """Visual outputs (harp_tpu/utils/viz.py): image grids, red/blue
 silhouette overlays, per-frame GT | pred | normal | overlay composites and
 the texture-map export, written as PNG by a small writer on zlib and
-struct (no imaging library is needed).
+struct, and read back (UV masks) by a small PNG reader: no imaging library
+is needed.
 """
 
 from __future__ import annotations
@@ -41,6 +42,86 @@ def encode_png(arr: np.ndarray) -> bytes:
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))
+
+
+def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (None, Sub, Up, Average, Paeth) of h rows
+    of w * bpp bytes, each led by its filter byte."""
+    stride = w * bpp
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    pos = 0
+    for y in range(h):
+        ftype, line = raw[pos], np.frombuffer(raw, np.uint8, stride, pos + 1).astype(np.int64)
+        pos += stride + 1
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: a running sum per byte lane
+            cur = np.cumsum(line.reshape(w, bpp), 0).reshape(-1) & 0xFF
+        elif ftype == 2:  # Up
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):  # Average, Paeth: each byte needs its left neighbour
+            cur = line.tolist()
+            up = prev.tolist()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ftype == 3:
+                    cur[i] = (cur[i] + ((a + b) >> 1)) & 0xFF
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                    cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.asarray(cur, np.int64)
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) grey, (H, W, 2) grey + alpha, (H, W, 3) RGB or
+    (H, W, 4) RGBA uint8: 8 bits per sample, no palette, no interlace."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color, _, _, interlace = header
+    channels = {0: 1, 4: 2, 2: 3, 6: 4}.get(color)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(f"PNG with bit depth {depth}, colour type {color}, interlace "
+                         f"{interlace}: only 8-bit grey / RGB(A), not interlaced")
+    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w, channels)
+    return pix.reshape(h, w) if channels == 1 else pix.reshape(h, w, channels)
+
+
+def read_grey(path: str) -> np.ndarray:
+    """A PNG as one grey channel in [0, 1], float32: grey as it is, colour
+    by PIL's convert("L") (ITU-R 601-2 luma, 16-bit fixed point; alpha
+    ignored)."""
+    with open(path, "rb") as f:
+        img = decode_png(f.read()).astype(np.int64)
+    if img.ndim == 3:
+        if img.shape[2] <= 2:
+            img = img[..., 0]
+        else:
+            img = (img[..., 0] * 19595 + img[..., 1] * 38470 + img[..., 2] * 7471
+                   + 0x8000) >> 16
+    return img.astype(np.float32) / 255.0
 
 
 def save_image(img, path: str) -> None:
@@ -93,13 +174,15 @@ def frame_composite(img_true, img_pred, img_normal, mask_true, mask_pred) -> np.
                           axis=1)
 
 
-def save_texture_maps(params, uv_mask, out_dir: str) -> None:
-    """The fitted albedo and normal map as uv_out/texture.png and
+def save_texture_maps(params, uv_mask, out_dir: str, texture=None) -> None:
+    """The fitted albedo (params["texture"], or `texture` where given: a
+    texture basis's) and normal map as uv_out/texture.png and
     uv_out/normal_map.png, masked by the uv mask."""
     out = os.path.join(out_dir, "uv_out")
     mask = np.asarray(uv_mask.cpu() if hasattr(uv_mask, "cpu") else uv_mask) \
         if uv_mask is not None else None
-    tex = np.clip(params["texture"].detach().cpu().numpy(), 0, 1)
+    tex = params["texture"] if texture is None else texture
+    tex = np.clip(tex.detach().cpu().numpy(), 0, 1)
     if mask is not None:
         tex = tex * mask[..., None]
     save_image(tex, os.path.join(out, "texture.png"))

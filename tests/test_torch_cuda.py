@@ -339,3 +339,113 @@ def test_three_epoch_fit_repeats_bit_equal(cuda):
     assert h0 == h1 and [h["epoch"] for h in h0] == [0, 1, 2]
     for k in p0:
         assert torch.equal(p0[k], p1[k]), k
+
+
+def test_arm_train_step_repeats_bit_equal(cuda):
+    """Two stage-2 TrainSteps of the SMPL-X arm (light density, 32^2,
+    self-shadow, wrist and global rotation optimised) from one state: the
+    same gradients and parameters, bit for bit (the extra joints' repeated
+    vertex ids sum through segment_sum)."""
+    from harp_tpu_torch.assets import build_synthetic_arm_assets
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.fit.driver import _key_stream_np, make_train_step
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.render import pipeline
+
+    img = 32
+    assets = build_synthetic_arm_assets(uv_size=16, density="light")
+    config = HarpConfig(img_size=img, focal_length=2000.0 * img / 448, texture_size=16,
+                        self_shadow=True, w_vgg=0.0, batch_size=2, use_arm=True,
+                        opt_arm_pose=True)
+    rcfg = RasterConfig(image_size=img, tile=8, cap=1024, faces_per_pixel=16, span_tiles=4)
+    rng = np.random.RandomState(0)
+    init = {"pose": 0.2 * rng.randn(2, 45), "rot": 0.05 * rng.randn(2, 3),
+            "trans": np.zeros((2, 3)), "shape": 0.1 * rng.randn(2, 10),
+            "cam": np.tile([6.0, -0.08, -0.01], (2, 1)), "joints": 10.0 * rng.randn(2, 22, 3)}
+    yy, xx = np.mgrid[0:img, 0:img]
+    masks = np.stack([((yy - 15.5) ** 2 + (xx - 12.5 - 2 * b) ** 2 < 81) for b in range(2)])
+    data = [torch.from_numpy(a.astype(np.float32)).to(cuda)
+            for a in (rng.uniform(0, 1, (2, img, img, 3)), masks, masks)]
+    fids = torch.arange(2, device=cuda)
+    wrist = torch.from_numpy(0.1 * rng.randn(2, 3))
+    results = []
+    for _ in range(2):
+        params, aux = init_params(init, assets, config, device=cuda)
+        with torch.no_grad():
+            params["wrist_pose"].copy_(wrist)
+        ref = pipeline.mesh_forward(params, fids[:1], assets, config)[0][0].detach()
+        step = make_train_step(assets, config, rcfg, params, device=cuda)
+        step(aux, fids, *data, ref, coarse_on=True, app_on=True, key=_key_stream_np(0, 1)[0])
+        results.append({k: (p.grad.clone(), p.detach().clone()) for k, p in params.items()
+                        if p.grad is not None})
+    assert results[0]["wrist_pose"][0].abs().max() > 0
+    for k, (g, p) in results[0].items():
+        assert torch.equal(g, results[1][k][0]), f"gradient of {k} differs"
+        assert torch.equal(p, results[1][k][1]), f"updated {k} differs"
+
+
+def test_raster_ids_at_the_arm_shape_match_plain(cuda):
+    """K1 on the reference-density arm (4078 render vertices, 8128 faces)
+    at 448^2 with harp_tpu's budget (cap 448, span 3, active 0.28; the
+    poses of harp_tpu's arm density test, cam 5): camera soft + hard ids and
+    the light's depth-only ids equal the plain version's, and no tile
+    overflowed."""
+    import dataclasses
+
+    from harp_tpu_torch.assets import build_synthetic_arm_assets
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.render import camera as cam_mod
+    from harp_tpu_torch.render import pipeline
+
+    assets = build_synthetic_arm_assets(density="reference")
+    config = HarpConfig(img_size=448, use_arm=True)
+    rng = np.random.RandomState(0)
+    B = 2
+    params = {k: torch.as_tensor(np.asarray(v, np.float32), device=cuda) for k, v in {
+        "pose": 0.15 * rng.randn(B, 45), "rot": 0.05 * rng.randn(B, 3),
+        "trans": np.zeros((B, 3)), "shape": np.zeros(10),
+        "wrist_pose": 0.1 * rng.randn(B, 3), "cam": np.tile([5.0, 0.05, -0.01], (B, 1)),
+        "verts_disps": np.zeros((assets.num_render_verts, 1))}.items()}
+    fids = torch.arange(B, device=cuda)
+    with torch.no_grad():
+        verts, _ = pipeline.mesh_forward(params, fids, assets, config)
+        R, T = pipeline.camera_for_frames(params, fids, config)
+        screen = cam_mod.screen_from_world(verts, R, T, config.focal_length, 448)
+    for need_soft, size, cap in ((True, 448, 448), (False, 224, 1344)):
+        cfg = RasterConfig(image_size=size, cap=cap, span_tiles=3, active_fraction=0.28)
+        out = raster_compact(screen * (size / 448), assets.render_faces, cfg,
+                             need_soft=need_soft)
+        for k in ("bin_overflow", "active_overflow", "span_overflow"):
+            assert int(out[k].sum()) == 0, k
+        b = out["bins"]
+        args = (b["fv9"], b["s_face"], b["start_a"], b["count_a"], b["act_idx"])
+        hard, soft, ssum = rk.raster_ids(*args, cfg, need_soft)
+        hard_p, soft_p, ssum_p = rk.raster_ids_plain(
+            *args, dataclasses.replace(cfg, face_chunk=64), need_soft)
+        assert torch.equal(hard, hard_p)
+        if need_soft:
+            assert torch.equal(soft, soft_p)
+            torch.testing.assert_close(ssum, ssum_p, rtol=1e-5, atol=1e-6)
+
+
+def test_html_basis_texture_on_the_card_matches_the_cpu(cuda):
+    """HTML's texture at the flagship's width (512^2 x 3, 101 coefficients):
+    the texture and its coefficient gradient on the card against the CPU,
+    rtol 1e-5; two card calls give the same bits."""
+    from harp_tpu_torch.models.html import synthetic_texture_basis
+
+    basis = synthetic_texture_basis(size=512, num_coeffs=101)
+    rng = np.random.RandomState(0)
+    c = (0.5 * rng.randn(101)).astype(np.float32)
+    w = torch.from_numpy(rng.randn(512, 512, 3).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda, cuda):
+        x = torch.tensor(c, device=dev, requires_grad=True)
+        tex = basis.texture(x)
+        (tex * w.to(dev)).sum().backward()
+        out.setdefault(str(dev), []).append((tex.detach().cpu(), x.grad.cpu()))
+    (tex_c, g_c), = out["cpu"]
+    (tex_1, g_1), (tex_2, g_2) = out[str(cuda)]
+    assert torch.equal(tex_1, tex_2) and torch.equal(g_1, g_2)
+    torch.testing.assert_close(tex_1, tex_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(g_1, g_c, rtol=1e-5, atol=1e-5 * float(g_c.abs().max()))

@@ -212,6 +212,41 @@ def test_evaluate_sequence_on_gt_params(scene, tmp_path):
     assert (tmp_path / "eval_results.txt").exists()
 
 
+def test_evaluate_sequence_of_the_arm_takes_its_mano_vertices(tmp_path):
+    """With use_arm the Procrustes error aligns the GT MANO mesh with the
+    arm mesh's MANO vertices (mano_vert_from_arm, here in reverse order),
+    not with the first vertices of the render mesh."""
+    import dataclasses
+
+    from harp_tpu_torch.assets import build_synthetic_arm_assets
+    from harp_tpu_torch.config import HarpConfig as PortConfig
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+
+    assets = build_synthetic_arm_assets(uv_size=16, density="light")
+    n_hand = len(assets.model.mano_vert_from_arm)
+    model = dataclasses.replace(assets.model,
+                                mano_vert_from_arm=np.arange(n_hand)[::-1].copy())
+    assets = dataclasses.replace(assets, model=model)
+    config = PortConfig(img_size=32, focal_length=2000.0 * 32 / 448, texture_size=16,
+                        self_shadow=False, batch_size=2, use_arm=True)
+    rcfg = RasterConfig(image_size=32, tile=8, cap=2048, faces_per_pixel=8, span_tiles=4)
+    images, masks, masks_er, gt, init = make_synthetic_sequence(assets, config, rcfg,
+                                                                n_frames=2, device="cpu")
+    with torch.no_grad():
+        verts, _ = pipeline.mesh_forward(gt, torch.arange(2), assets, config)
+    mesh_dir = tmp_path / "gt_mesh"
+    mesh_dir.mkdir()
+    for f in range(2):
+        np.savetxt(mesh_dir / f"{501 + f}_manov.xyz",
+                   verts[f, model.mano_vert_from_arm].double().numpy() * 1000.0)
+    _, aux = init_params(init, assets, config, device="cpu")
+    config = dataclasses.replace(config, eval_mesh=True, gt_mesh_dir=str(mesh_dir))
+    stats = evaluate_sequence(config, assets, FitData(images, masks, masks_er), gt, aux,
+                              rcfg=rcfg, out_dir=str(tmp_path), save_images=False,
+                              device="cpu")
+    assert stats["Procrustes-aligned vertex error (mm)"] < 1e-3
+
+
 def test_evaluate_sequence_refuses_a_truncated_render(scene, tmp_path):
     import dataclasses
 
@@ -262,10 +297,33 @@ def test_cli_runs_a_tiny_synthetic_fit_on_cpu(tmp_path):
         assert os.path.exists(os.path.join(out, name)), name
 
 
+def test_cli_runs_a_tiny_synthetic_arm_fit_on_cpu(tmp_path):
+    """--use-arm is no longer refused with --synthetic: the SMPL-X arm fits
+    and evaluates with its own raster budget, and its outputs are written."""
+    from harp_tpu_torch.fit_avatar import main
+
+    out = str(tmp_path / "arm")
+    stats = main(["--synthetic", "--use-arm", "--device", "cpu", "--n-frames", "2",
+                  "--img-size", "32", "--texture-size", "64", "--density", "light",
+                  "--stages", "1", "1", "1", "--epochs", "3", "--raster-cap", "2048",
+                  "--no-vgg", "--out", out])
+    with open(os.path.join(out, "fit_summary.json")) as f:
+        summary = json.load(f)
+    assert summary["final_loss"] == stats["final_loss"] and np.isfinite(stats["final_loss"])
+    assert 0.0 < summary["Silhouette IoU"] <= 1.0
+    with open(os.path.join(out, "config.yaml")) as f:
+        cfg = f.read()
+    assert "use_arm: true" in cfg and "raster_span_tiles: 4" in cfg  # the arm's budget
+    for name in ("metrics.jsonl", "saved_params.pkl", "eval_results.txt",
+                 os.path.join("rendered_after_opt", "0001.png")):
+        assert os.path.exists(os.path.join(out, name)), name
+
+
 def test_cli_refuses_what_is_not_ported_and_needs_a_device(monkeypatch, tmp_path):
     from harp_tpu_torch.fit_avatar import main
 
-    for flags in (["--use-arm"], ["--mesh-devices", "2"], ["--turntables"], []):
+    for flags in (["--use-arm", "--smplx-npz", "SMPLX_NEUTRAL.npz"], ["--mesh-devices", "2"],
+                  ["--turntables"], []):
         with pytest.raises(SystemExit):
             main((["--synthetic"] if flags else []) + flags + ["--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

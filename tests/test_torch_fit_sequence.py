@@ -190,9 +190,26 @@ def test_checkpoint_resume_equals_an_unbroken_fit(scene, tmp_path):
 
 def test_fit_sequence_refuses_what_is_not_ported(scene):
     for kw in (dict(mesh=object()), dict(epoch_scan=10), dict(prefetch_compile=True),
-               dict(image_log_every=10), dict(extras={"texture_basis": None})):
+               dict(image_log_every=10)):
         with pytest.raises(NotImplementedError):
             _port_fit(scene, **kw)
+
+
+def test_fit_sequence_takes_model_extras(scene):
+    """extras are no longer refused: HTML's texture basis drives the
+    texture, and its coefficients move while the free texels stay."""
+    from harp_tpu_torch.models.html import synthetic_texture_basis
+
+    config = dataclasses.replace(scene["config"], model_type="html", w_vgg=0.0)
+    extras = {"texture_basis": synthetic_texture_basis(size=TEX, num_coeffs=101)}
+    params, aux = init_params(scene["init"], scene["assets"], config, device="cpu")
+    start = {k: v.detach().clone() for k, v in params.items()}
+    data = FitData(*[torch.from_numpy(a.copy()) for a in scene["arrays"]])
+    params, hist = fit_sequence(config, scene["assets"], data, params, aux, rcfg=scene["rcfg"],
+                                extras=extras, device="cpu")
+    assert len(hist) == 2 and np.isfinite(hist[-1]["loss"]) and hist[-1]["photo"] > 0
+    assert not torch.equal(params["html_texture"], start["html_texture"])
+    assert torch.equal(params["texture"], start["texture"])
 
 
 def test_fit_sequence_without_a_device_raises_when_cuda_is_absent(scene, monkeypatch):
