@@ -20,18 +20,26 @@ density (4078 render vertices, 8128 faces): the kernels at its shapes
 (arm_kernel, each; arm_kernels, all with the arm step's launches), its
 card-vs-CPU step, its 18-frame 448^2 step without VGG
 (arm_step) and with it (arm_vgg_step), one HTML and one NIMBLE step
-(zoo_step), and the arm fit through the CLI (arm_fit).
+(zoo_step), and the arm fit through the CLI (arm_fit). Then the real-data
+path: model files and a 36-frame train / 9-frame val sequence written in
+the reference's layout (JPEG through nvJPEG's encoder), decoded by
+nvJPEG on the card and held to harp_tpu's JPEG bounds, with the decode ms
+per frame at 36 and 300 frames (real_data_decode); the CLI's real-data fit
+twice (bit-equal), its eval and val keys, its logs, and a known-appearance
+fit after it (real_data); preprocessing on the card: the MANO fit to the
+36 GT meshes, both smoothers, and the card against the CPU (preprocess).
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc and the repository checkout; builds the kernels
-into harp_tpu_torch/_build/ on first use. Each phase prints one JSON line;
+Needs one CUDA card, nvcc with nvJPEG and the repository checkout; builds
+the kernels and the frame decoder into harp_tpu_torch/_build/ on first use. Each phase prints one JSON line;
 any failed check raises, so the exit code is non-zero. The last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -139,13 +147,17 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def phase_build():
+    """nvcc for the three kernel sources and the nvJPEG frame decoder, all
+    at once; each build line (compiler and flags) and each kernel's
+    registers."""
     from harp_tpu_torch.csrc import build
 
     out = build.build_all()
     # Each kernel's (mangled) name, then its registers and spills.
     ptxas = [ln.strip() for log in out["logs"].values() for ln in log.splitlines()
              if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": out["seconds"], "ptxas": ptxas})
+    emit({"phase": "build", "seconds": out["seconds"], "ptxas": ptxas,
+          "commands": {name: build.command(name) for name in build.SOURCES}})
 
 
 def phase_device() -> str:
@@ -1051,6 +1063,287 @@ def phase_arm_fit(dev) -> None:
         fail(f"arm_fit: eval {stats}, {n_png} composites")
 
 
+@contextlib.contextmanager
+def chdir(path: str):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+REAL_FRAMES = {"1": 36, "2": 9}  # the train and val sequences of phase real_data
+DECODE_LONG = 300  # a real sequence's length, for the decode timing
+
+
+def _decode_ms(dev, paths: list, repeats: int = 3) -> dict:
+    """Per-frame decode ms (nvJPEG on the card, file reads included) of
+    `paths`' frames and of their masks, best of `repeats` after one
+    warm-up."""
+    import torch
+    from harp_tpu_torch import native
+
+    out = {}
+    for kind, gray in (("rgb", False), ("mask", True)):
+        files = [p.replace("unscreen_cropped", "mask").replace(".jpg", "_mask.jpg")
+                 for p in paths] if gray else paths
+        native.decode_jpeg_batch(files, gray=gray, device=dev)
+        best = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            native.decode_jpeg_batch(files, gray=gray, device=dev)
+            torch.cuda.synchronize()
+            best.append(time.perf_counter() - t0)
+        out[kind] = 1000.0 * min(best) / len(files)
+    return out
+
+
+def _run_cli(argv: list) -> tuple:
+    """fit_avatar's CLI in this process: (summary, wall s, launches,
+    per-epoch JSONL lines)."""
+    import contextlib as cl
+    import io
+
+    from harp_tpu_torch.fit_avatar import main as fit_avatar
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with cl.redirect_stdout(io.StringIO()):  # the CLI prints its summary
+        stats = fit_avatar(argv)
+    wall = time.perf_counter() - t0
+    out = argv[argv.index("--out") + 1]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "loss" in r]
+    return stats, wall, read_launches(), epochs
+
+
+def phase_real_data(dev) -> dict:
+    """The real-data fit through the CLI, on files in the reference's
+    layout that this phase writes in a scratch working directory: the
+    model files (MANO_RIGHT.pkl, template/hand/textured_hand.obj,
+    uv_mask.png) from the synthetic hand at reference density, and a
+    36-frame train sequence "1" and a 9-frame val sequence "2" rendered at
+    448^2 from the hand loaded back from them (make_synthetic_sequence
+    seeds 0 and 1, its perturbed start as the METRO pkl), written by the
+    port's encoder (nvJPEG) at quality 95. load_sequences must give the
+    pkl parameters exactly, frames within a mean of 0.015 of the float
+    frames and masks within 0.03 (harp_tpu's bounds), eroded masks equal
+    to erode_mask of the masks, all on the card; decode ms per frame at 36
+    and at 300 frames (the 36 again under new names). Then the CLI at
+    harp_tpu's defaults (B18, VGG bf16 with the cached GT, shadow, budget
+    0.28 / span 3 / cap 448) with --stages 2 2 2 --epochs 7 --val-list 2,
+    twice: the loss falls, every overflow counter reads 0, every kernel
+    runs, the eval IoU is over 0.7, the val keys and the epoch-0 image and
+    val logs are there, and the two runs' saved_params.pkl are the same
+    bits. Then --start-from the first run --known-appearance on sequence
+    2: texture, normal map, displacements and shape come out unchanged.
+    Returns what phase preprocess fits: the model and the train
+    sequence's GT and start."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+    from harp_tpu_torch.assets import build_synthetic_assets, write_hand_model_files
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.data.dataset import load_sequences, write_sequence
+    from harp_tpu_torch.data.synthetic import erode_mask, make_synthetic_sequence
+    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS
+    from harp_tpu_torch.models.zoo import load_hand_model
+    from harp_tpu_torch.render.rasterizer import RasterConfig
+
+    rec = {"phase": "real_data"}
+    with tempfile.TemporaryDirectory() as tmp, chdir(tmp):
+        write_hand_model_files(build_synthetic_assets(uv_size=TEX, density="reference"),
+                               "MANO_RIGHT.pkl", "template/hand/textured_hand.obj",
+                               "template/hand/uv_mask.png")
+        config = HarpConfig(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX)
+        assets, _ = load_hand_model(config, mano_pkl="MANO_RIGHT.pkl")
+        # The ground truth rendered with a budget it cannot overflow.
+        gt_rcfg = RasterConfig(image_size=IMG, active_fraction=0.5, cap=448, span_tiles=4)
+        frames, t0 = {}, time.perf_counter()
+        for seq, seed in (("1", 0), ("2", 1)):
+            images, masks, _, gt, init = make_synthetic_sequence(
+                assets, config, gt_rcfg, n_frames=REAL_FRAMES[seq], seed=seed, device=dev)
+            init = dict(init, verts=np.zeros((REAL_FRAMES[seq], 1, 3), np.float32))
+            write_sequence(tmp, seq, images, masks, init)
+            frames[seq] = (images, masks, gt, init)
+        rec["write_s"] = time.perf_counter() - t0
+
+        params, images, masks, eroded = load_sequences(tmp, tmp, ["1"], device=dev)
+        f_images, f_masks, gt, init = frames["1"]
+        bad = [k for k in init if not np.array_equal(params[k], np.asarray(init[k], np.float32))]
+        err = {"image_mean_abs": float((images - f_images).abs().mean()),
+               "mask_mean_abs": float((masks - f_masks).abs().mean())}
+        rec["decode_err"] = err
+        if bad or err["image_mean_abs"] >= 0.015 or err["mask_mean_abs"] >= 0.03:
+            fail(f"real_data: pkl keys differ {bad} or decode beyond bounds {err}")
+        if not (images.device.type == masks.device.type == eroded.device.type == dev.type
+                and torch.equal(eroded, erode_mask(masks, iterations=2))):
+            fail("real_data: the frames are not on the card or the eroded masks differ")
+
+        paths = [os.path.join(tmp, "1", "unscreen_cropped", "%04d.jpg" % i)
+                 for i in range(REAL_FRAMES["1"])]
+        long_dir = os.path.join(tmp, "long")
+        for sub in ("unscreen_cropped", "mask"):
+            os.makedirs(os.path.join(long_dir, sub))
+        long_paths = []
+        for i in range(DECODE_LONG):
+            src = paths[i % len(paths)]
+            dst = os.path.join(long_dir, "unscreen_cropped", "%04d.jpg" % i)
+            shutil.copyfile(src, dst)
+            shutil.copyfile(src.replace("unscreen_cropped", "mask").replace(".jpg", "_mask.jpg"),
+                            dst.replace("unscreen_cropped", "mask").replace(".jpg", "_mask.jpg"))
+            long_paths.append(dst)
+        rec["decode_ms_per_frame"] = {str(len(paths)): _decode_ms(dev, paths),
+                                      str(DECODE_LONG): _decode_ms(dev, long_paths)}
+        # nvJPEG's batched decode on one host thread (hn_decode_batch).
+        rec["decode_route"], rec["decode_host_threads"] = "nvjpeg", 1
+        emit(dict(rec, phase="real_data_decode"))
+
+        base = ["--metro-output-dir", tmp, "--image-dir", tmp, "--train-list", "1",
+                "--mano-pkl", "MANO_RIGHT.pkl", "--img-size", str(IMG), "--texture-size",
+                str(TEX), "--stages", "2", "2", "2", "--epochs", "7"]
+        saved = []
+        for run in range(2):
+            out = f"run{run}"
+            stats, wall, launches, epochs = _run_cli(base + ["--val-list", "2", "--out", out])
+            with open(os.path.join(out, "saved_params.pkl"), "rb") as f:
+                saved.append(pickle.load(f))
+            if run:
+                rec["cli_wall_s_run2"] = wall
+                continue
+            losses = [r["loss"] for r in epochs]
+            counters = {k: max(r.get(k, 0.0) for r in epochs) for k in OVERFLOW_KEYS}
+            logs = [n for n in ("sil_0000.png", "0000.png", "val_0000.png", "uv_0000.png",
+                                "normal_0000.png") if os.path.exists(os.path.join(out, n))]
+            rec.update({"cli_wall_s": wall, "epoch_losses": losses, "overflow_max": counters,
+                        "launches": launches, "logs": logs, **{k: stats.get(k) for k in (
+                            "Silhouette IoU", "L1", "MS_SSIM", "LPIPS_proxy",
+                            "val Silhouette IoU", "val L1", "val MS_SSIM", "fit_wall_s",
+                            "eval_wall_s", "final_loss", "device")}})
+            if len(losses) != 7 or not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                fail(f"real_data: epoch losses {losses}")
+            if any(k not in epochs[3] for k in OVERFLOW_KEYS) or any(counters.values()):
+                fail(f"real_data: overflow counters {counters}")
+            if any(v == 0 for v in launches.values()):
+                fail(f"real_data: kernels never launched: {launches}")
+            if not stats["Silhouette IoU"] > 0.7 or "val Silhouette IoU" not in stats:
+                fail(f"real_data: eval {stats}")
+            if len(logs) != 5:
+                fail(f"real_data: image / val logs missing, found {logs}")
+        spread = {k: float(np.abs(saved[0][k] - saved[1][k]).max()) for k in saved[0]}
+        rec["cli2_param_max_abs_diff"] = spread
+        if any(spread.values()):
+            fail(f"real_data: two CLI fits from one seed differ: {spread}")
+
+        known = base + ["--start-from", "run0", "--known-appearance", "--out", "known"]
+        known[known.index("--train-list") + 1] = "2"
+        stats, wall, _, _ = _run_cli(known)
+        with open(os.path.join("known", "saved_params_test.pkl"), "rb") as f:
+            kept = pickle.load(f)
+        moved = [k for k in ("texture", "normal_map", "verts_disps", "shape")
+                 if not np.array_equal(kept[k], saved[0][k])]
+        rec.update({"known_wall_s": wall, "known_Silhouette IoU": stats["Silhouette IoU"]})
+        emit(rec)
+        if moved:
+            fail(f"real_data: --known-appearance changed {moved}")
+    return {"model": assets.model, "gt": gt, "init": init}
+
+
+def phase_preprocess(dev, real: dict) -> None:
+    """Preprocessing on the card: fit_mano_to_vertices to the train
+    sequence's 36 GT meshes (the port's mano_forward of its GT parameters,
+    as harp_tpu's tests/test_preprocess.py builds its targets) at
+    harp_tpu's iteration counts (500 / 700), whose fit error must come
+    under 10 mm^2; smooth_pose_sequence and smooth_camera_sequence at 1000
+    iterations; the wall seconds of each. Card against CPU: the fit's
+    objective at its start (loss rtol 1e-5, gradient within 1e-3 of each
+    leaf's largest entry) and both smoothers at 50 iterations (within 1e-3
+    of each leaf's largest entry). The smoothers' anchor joints carry 1 mm
+    of seeded noise there, as METRO's do: joints equal to the forward's
+    would leave the end frames' gradients at rounding noise, which Adam
+    turns into full steps of either sign on either device.
+
+    The fit's trajectory itself is not held card against CPU: its start
+    puts the translation at the targets' mean, where the translation's
+    gradient is rounding noise, and Adam's first steps (lr 0.1) take that
+    noise's sign. The phase records the 50 + 50 fit's card-vs-CPU gaps
+    beside the CPU's own gaps under a 1e-7 relative change of the targets
+    (numbers only)."""
+    import torch
+    from harp_tpu_torch.models.mano import mano_forward
+    from harp_tpu_torch.preprocess import (
+        fit_mano_to_vertices, smooth_camera_sequence, smooth_pose_sequence,
+    )
+    from harp_tpu_torch.preprocess.fit import mano_fit_objective
+
+    model, gt, init = real["model"], real["gt"], real["init"]
+    n = gt["pose"].shape[0]
+    with torch.no_grad():
+        target, _ = mano_forward(model, torch.cat([gt["rot"], gt["pose"]], 1),
+                                 gt["shape"].expand(n, -1), gt["trans"])
+    rec = {"phase": "preprocess", "frames": n}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = fit_mano_to_vertices(model, target, device=dev)
+    torch.cuda.synchronize()
+    rec["fit_s"], rec["fit_error_mm2"] = time.perf_counter() - t0, fit["fit_error"]
+    rec["fit_mean_abs_mm"] = float((fit["verts"] - target).abs().mean())
+    seq = dict(fit, cam=init["cam"])
+    t0 = time.perf_counter()
+    smoothed = smooth_pose_sequence(model, seq, device=dev)
+    torch.cuda.synchronize()
+    rec["smooth_pose_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smooth_camera_sequence(model, smoothed, device=dev)
+    torch.cuda.synchronize()
+    rec["smooth_camera_s"] = time.perf_counter() - t0
+
+    def leaf_err(got: dict, want: dict, keys) -> dict:
+        out = {}
+        for k in keys:
+            a, b = got[k].detach().cpu().double(), want[k].detach().cpu().double()
+            out[k] = float((a - b).abs().max() / max(float(b.abs().max()), 1e-12))
+        return out
+
+    def start(device):
+        _, loss_fn, p = mano_fit_objective(model, target, device=device)
+        p = {k: v.requires_grad_(True) for k, v in p.items()}
+        loss = loss_fn(p)
+        return dict(zip(p, torch.autograd.grad(loss, list(p.values())))), float(loss.detach())
+
+    (g_card, l_card), (g_cpu, l_cpu) = start(dev), start("cpu")
+    rec["card_vs_cpu"] = {"start_loss_rel": abs(l_card - l_cpu) / abs(l_cpu),
+                          "start_grad": leaf_err(g_card, g_cpu, g_cpu)}
+    rng = np.random.RandomState(0)
+    noisy = dict(seq, joints=fit["joints"].cpu().numpy()
+                 + rng.randn(*fit["joints"].shape).astype(np.float32))
+    for name, fn, ks in (("smooth_pose", smooth_pose_sequence, ("rot", "pose", "shape")),
+                         ("smooth_camera", smooth_camera_sequence, ("cam",))):
+        rec["card_vs_cpu"][name] = leaf_err(fn(model, noisy, total_iters=50, device=dev),
+                                            fn(model, noisy, total_iters=50, device="cpu"), ks)
+    short = dict(epoch_coarse=50, epoch_fine=50)
+    keys = ("rot", "pose", "shape", "trans", "verts")
+    cpu_fit = fit_mano_to_vertices(model, target.cpu(), **short, device="cpu")
+    rec["fit_50_50_gaps"] = {
+        "card_vs_cpu": leaf_err(fit_mano_to_vertices(model, target, **short, device=dev),
+                                cpu_fit, keys),
+        "cpu_vs_cpu_target_1e-7": leaf_err(fit_mano_to_vertices(
+            model, target.cpu() * (1 + 1e-7), **short, device="cpu"), cpu_fit, keys)}
+    emit(rec)
+    if not rec["fit_error_mm2"] < 10.0:
+        fail(f"preprocess: fit error {rec['fit_error_mm2']} mm^2")
+    c = rec["card_vs_cpu"]
+    worst = {f"{part}.{k}": v for part in ("start_grad", "smooth_pose", "smooth_camera")
+             for k, v in c[part].items() if v > 1e-3}
+    if c["start_loss_rel"] > 1e-5 or worst:
+        fail(f"preprocess: card vs CPU: start loss rel {c['start_loss_rel']}, beyond 1e-3 "
+             f"of a leaf's largest entry: {worst}")
+
+
 def phase_segment_sum_shapes(run_step, per_step: int) -> None:
     """segment_sum at every call site of one stage-2 step: each call's
     (M, C, R, longest run of one key) with its device time (torch.profiler,
@@ -1177,6 +1470,7 @@ def main() -> int:
     phase_zoo_step(dev)
     phase_arm_fit(dev)
     phase_vs_cpu(dev, arm=True)
+    phase_preprocess(dev, phase_real_data(dev))
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}), flush=True)

@@ -12,6 +12,7 @@ numpy code is a copy of harp_tpu's, so the arrays are identical.
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 
 import numpy as np
@@ -125,6 +126,40 @@ def load_arm_correspondence(path: str) -> dict:
     with open(path, "rb") as f:
         d = pickle.load(f)
     return {k: np.asarray(v) for k, v in d.items()}
+
+
+def write_hand_model_files(assets: AvatarAssets, mano_pkl: str, template_obj: str,
+                           uv_mask_png: str) -> None:
+    """Write a MANO-topology hand's assets as the real model files
+    load_hand_model reads: the MANO pickle (plain arrays), the template OBJ
+    of the render mesh with its wedge UVs, and the uv mask as a grey PNG.
+    A hand that loads back from them renders the same vertices; its
+    joints take MANO's fingertip vertex ids (TIPS_RIGHT), as every loaded
+    MANO does."""
+    from harp_tpu_torch.utils.viz import save_image
+
+    m = assets.model
+    hands_mean = np.zeros(45, np.float32) if m.flat_hand_mean else m.hands_mean
+    mano = {"v_template": m.v_template, "shapedirs": m.shapedirs, "posedirs": m.posedirs,
+            "J_regressor": m.J_regressor, "weights": m.weights,
+            "f": np.asarray(m.faces, np.uint32),
+            "kintree_table": np.stack([np.r_[4294967295, m.parents[1:]],
+                                       np.arange(len(m.parents))]),
+            "hands_components": m.hands_components, "hands_mean": hands_mean}
+    for path in (mano_pkl, template_obj, uv_mask_png):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(mano_pkl, "wb") as f:
+        pickle.dump(mano, f, protocol=2)
+    template = m.v_template
+    if assets.subdivision is not None:
+        e = assets.subdivision.edge_src
+        template = np.concatenate([template, 0.5 * (template[e[:, 0]] + template[e[:, 1]])])
+    with open(template_obj, "w") as f:
+        f.writelines("v %.9g %.9g %.9g\n" % tuple(v) for v in template)
+        f.writelines("vt %.9g %.9g\n" % tuple(t) for t in assets.verts_uvs)
+        f.writelines("f %d/%d %d/%d %d/%d\n" % (a + 1, ta + 1, b + 1, tb + 1, c + 1, tc + 1)
+                     for (a, b, c), (ta, tb, tc) in zip(assets.render_faces, assets.faces_uvs))
+    save_image((np.asarray(assets.uv_mask) * 255).astype(np.uint8), uv_mask_png)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels of harp_tpu_torch/csrc.
+"""Build and load the CUDA kernels of harp_tpu_torch/csrc, and the card's
+nvJPEG frame decoder (native/frameloader_nvjpeg.cu).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ctypes. Libraries are built at first use
@@ -19,7 +20,6 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-CSRC = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -27,10 +27,12 @@ COMMON = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
           "-Xptxas", "-v"]
 # No --use_fast_math anywhere. The raster sources must not contract
 # a*b - c*d into FMAs: ids have to equal the plain version's exactly.
+# Paths are relative to the package.
 SOURCES = {
-    "raster": ("raster.cu", ["-fmad=false"]),
-    "pcf_scatter": ("pcf_scatter.cu", []),
-    "segment_sum": ("segment_sum.cu", []),
+    "raster": ("csrc/raster.cu", ["-fmad=false"]),
+    "pcf_scatter": ("csrc/pcf_scatter.cu", []),
+    "segment_sum": ("csrc/segment_sum.cu", []),
+    "nvjpeg": ("native/frameloader_nvjpeg.cu", ["-lnvjpeg"]),
 }
 
 
@@ -46,7 +48,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, list[str]]:
     src, extra = SOURCES[name]
-    path = CSRC / src
+    path = _PKG / src
     flags = ARCH + COMMON + extra
     h = hashlib.sha256(path.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{h}.so", [str(path)] + flags
@@ -74,6 +76,11 @@ def _finish(name: str, lib: Path, proc, tmp) -> str:
         raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
     os.replace(tmp, lib)
     return log
+
+
+def command(name: str) -> str:
+    """The nvcc command line that builds `name` (output path elided)."""
+    return " ".join([_nvcc(), *_target(name)[1], "-o", "<lib>"])
 
 
 def build_all() -> dict:

@@ -13,9 +13,9 @@ backward; the two Adam groups. For HTML the texture is its basis's
 fit_sequence runs the staged epochs with harp_tpu's numpy RandomState
 minibatch permutations and threefry key stream, so a fit sees the same
 minibatches and texture-regulariser offsets as harp_tpu's; the plateau
-schedule on coarse epochs; the per-epoch JSONL; checkpoints and resume.
-harp_tpu's TPU-tunnel machinery (mesh sharding, fused epoch scans, AOT
-prefetch lanes) has no counterpart here.
+schedule on coarse epochs; the per-epoch JSONL; the image and val logs;
+checkpoints and resume. harp_tpu's TPU-tunnel machinery (mesh sharding,
+fused epoch scans, AOT prefetch lanes) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -357,9 +358,76 @@ def _refuse(**tunnel_args) -> None:
     on = sorted(k for k, v in tunnel_args.items() if v)
     if on:
         raise NotImplementedError(
-            f"fit_sequence options {on} are not ported (harp_tpu's mesh sharding, "
-            "epoch scans and AOT prefetch have no counterpart; image / val logs "
-            "wait for render_360)")
+            f"fit_sequence options {on} are not ported (harp_tpu's mesh sharding "
+            "comes with the slice that ports parallel/; its epoch scans and AOT "
+            "prefetch have no counterpart)")
+
+
+_LOG_FRAMES = 9  # the first frames of a log's 3x3 grid
+
+
+def _log_images(params, data: FitData, assets, config, rcfg, out_dir: str, epoch: int,
+                submit) -> None:
+    """The silhouette overlay (GT red, prediction blue) and the RGB render
+    of the first frames as 3x3 grids, sil_%04d.png and %04d.png (harp_tpu's
+    _log_images; the reference's show_img_pair logging). Renders from the
+    live parameters under no_grad and touches nothing of the fit; the
+    host arrays go to submit(fn, *args), fit_sequence's background writer,
+    which lays them out and writes them."""
+    from harp_tpu_torch.utils import viz
+
+    n = min(_LOG_FRAMES, data.num_frames)
+    with torch.no_grad():
+        fids = torch.arange(n, device=data.masks.device)
+        verts, _ = pipeline.mesh_forward(params, fids, assets, config)
+        R, T = pipeline.camera_for_frames(params, fids, config)
+        alpha = pipeline.render_silhouette(verts, assets, R, T, config, rcfg)
+        light = params["light_positions"][0].expand(n, 3)
+        rgb = pipeline.render_rgb(verts, assets, R, T, config, rcfg, params["texture"],
+                                  params["normal_map"], light)
+    submit(viz.save_pair_grid, alpha.cpu().numpy(), decode_frames(data.masks[:n]).cpu().numpy(),
+           os.path.join(out_dir, "sil_%04d.png" % epoch), True)
+    submit(viz.save_pair_grid, rgb.cpu().numpy(), None, os.path.join(out_dir, "%04d.png" % epoch))
+
+
+def _log_val_images(params, val_params: dict, val_data: FitData, assets, config, rcfg,
+                    out_dir: str, epoch: int, extras: dict | None, submit) -> None:
+    """The held-out render during the fit (harp_tpu's _log_val_images; the
+    reference's visualize_val): the first validation frames with their own
+    per-frame parameters (val_params) and the shared shape and appearance
+    of the live fit, as val_%04d.png, with the texture (uv_%04d.png) and
+    the normal map (normal_%04d.png)."""
+    from harp_tpu_torch.render.shadow import render_rgb_with_shadow
+    from harp_tpu_torch.utils import viz
+
+    n = min(_LOG_FRAMES, val_data.num_frames)
+    shared = ("shape", "verts_disps", "texture", "normal_map", "amb_ratio", "html_texture",
+              "light_positions")
+    p = dict(val_params)
+    p.update({k: params[k] for k in shared if k in params})
+    with torch.no_grad():
+        fids = torch.arange(n, device=val_data.images.device)
+        verts, _ = pipeline.mesh_forward(p, fids, assets, config)
+        texture = appearance_texture(p, config, extras)
+        light = p["light_positions"][0].expand(n, 3)
+        if config.self_shadow:
+            rgb = render_rgb_with_shadow(verts, assets, config, rcfg, p["cam"][fids], light,
+                                         p["amb_ratio"], texture, p["normal_map"])
+        else:
+            R, T = pipeline.camera_for_frames(p, fids, config)
+            rgb = pipeline.render_rgb(verts, assets, R, T, config, rcfg, texture,
+                                      p["normal_map"], light)
+        nm = params["normal_map"] if "normal_map" in params else None
+        if nm is not None:
+            nm = nm / torch.clamp(torch.linalg.vector_norm(nm, dim=-1, keepdim=True), min=1e-8)
+    submit(viz.save_pair_grid, rgb.cpu().numpy(), None,
+           os.path.join(out_dir, "val_%04d.png" % epoch))
+    if "texture" in params or "html_texture" in params:
+        submit(viz.save_image, texture.detach().cpu().numpy(),
+               os.path.join(out_dir, "uv_%04d.png" % epoch))
+    if nm is not None:
+        submit(viz.save_image, nm.detach().cpu().numpy() * 0.5 + 0.5,
+               os.path.join(out_dir, "normal_%04d.png" % epoch))
 
 
 def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
@@ -375,7 +443,12 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
     history), history one dict per epoch: the epoch loss and each term's
     mean over the epoch's steps, overflow counters included.
 
-    out_dir: per-epoch JSONL (metrics.jsonl) and, every `checkpoint_every`
+    out_dir: per-epoch JSONL (metrics.jsonl); every `image_log_every`
+    epochs the image logs (sil_%04d.png, %04d.png) and, with val_data and
+    val_params (a validation sequence and its per-frame parameters), every
+    `val_log_every` epochs the val logs (val_%04d.png, uv_%04d.png,
+    normal_%04d.png), each after its epoch's steps, named by that epoch and
+    rendered without touching the fit's state; every `checkpoint_every`
     epochs, saved_params.pkl and checkpoint.pt (params, both Adam states,
     epoch, plateau state, the ARAP reference). resume: a load_checkpoint
     payload; the fit continues at its epoch + 1 with its optimizer state,
@@ -391,9 +464,8 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
     from harp_tpu_torch.utils.io import save_checkpoint, save_result
     from harp_tpu_torch.utils.profiling import MetricsLogger
 
-    _refuse(image_log_every=image_log_every, val_data=val_data,
-            val_params=val_params, mesh=mesh, epoch_scan=epoch_scan > 1,
-            prefetch_compile=prefetch_compile, prefetch_extra=prefetch_extra)
+    _refuse(mesh=mesh, epoch_scan=epoch_scan > 1, prefetch_compile=prefetch_compile,
+            prefetch_extra=prefetch_extra)
     t0 = time.perf_counter()
     dev = resolve_device(device)
     rcfg = rcfg or config.raster_config()
@@ -402,6 +474,15 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
                                    compute_dtype=config.vgg_compute_dtype, device=dev)
     step = make_train_step(assets, config, rcfg, params, device=dev, vgg=vgg, extras=extras)
     logger = MetricsLogger(out_dir) if out_dir is not None else None
+    # The logs' PNG encoding and writing run on one background thread (zlib
+    # releases the interpreter lock), as harp_tpu's writer queue does: the
+    # epoch loop pays the renders and their copies to the host only.
+    writer = (ThreadPoolExecutor(max_workers=1) if out_dir is not None
+              and (image_log_every or val_data is not None) else None)
+    writes = []
+
+    def submit(fn, *args):
+        writes.append(writer.submit(fn, *args))
 
     if resume is not None and "ref_verts" in (resume.get("extra") or {}):
         # The ARAP reference is frame 0 at the fit's ORIGINAL initial
@@ -470,6 +551,12 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
                                 **{k: float(v) / steps for k, v in zip(keys, host[1:])}})
                 if logger is not None:
                     logger.log(epoch, lr_scale=plateau.scale, **history[-1])
+                if out_dir is not None and image_log_every and epoch % image_log_every == 0:
+                    _log_images(params, data, assets, config, rcfg, out_dir, epoch, submit)
+                if (out_dir is not None and val_data is not None and val_log_every
+                        and epoch % val_log_every == 0):
+                    _log_val_images(params, val_params, val_data, assets, config, rcfg,
+                                    out_dir, epoch, extras, submit)
                 if out_dir is not None and checkpoint_every and epoch > 0 \
                         and epoch % checkpoint_every == 0:
                     save_result(params, out_dir, test=config.known_appearance)
@@ -486,4 +573,8 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
     finally:
         if logger is not None:
             logger.close()
+        if writer is not None:
+            writer.shutdown(wait=True)
+    for w in writes:
+        w.result()  # a failed log write raises here
     return params, history

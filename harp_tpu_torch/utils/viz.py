@@ -167,6 +167,17 @@ def image_grid(images, rows: int = 3, cols: int = 3) -> np.ndarray:
     return grid
 
 
+def save_pair_grid(pred, true, path: str, silhouette: bool = False) -> None:
+    """A 3x3 grid of the first predictions as a PNG; with `silhouette`,
+    of the red (GT) / blue (prediction) overlays. As in harp_tpu, the
+    plain grid shows the predictions alone."""
+    if silhouette:
+        imgs = [sil_overlay(t, p) for p, t in zip(pred, true)]
+    else:
+        imgs = list(np.asarray(pred))
+    save_image(image_grid(imgs), path)
+
+
 def frame_composite(img_true, img_pred, img_normal, mask_true, mask_pred) -> np.ndarray:
     """GT | prediction | normal render | silhouette overlay, side by side."""
     return np.concatenate([np.asarray(img_true), np.asarray(img_pred),

@@ -449,3 +449,134 @@ def test_html_basis_texture_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(tex_1, tex_2) and torch.equal(g_1, g_2)
     torch.testing.assert_close(tex_1, tex_c, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(g_1, g_c, rtol=1e-5, atol=1e-5 * float(g_c.abs().max()))
+
+
+def _jpeg_layout(root, n=3, size=64, seed=0):
+    """n smooth RGB frames and disc masks written by the port's encoder on
+    the card (nvJPEG), with the float frames."""
+    from harp_tpu_torch import native
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    imgs, masks, paths = [], [], []
+    for i in range(n):
+        f = rng.uniform(5, 15, 3)
+        img = np.stack([0.5 + 0.35 * np.sin(xx / f[c] + yy / (2 * f[c])) for c in range(3)], -1)
+        mask = ((yy - 30) ** 2 + (xx - 34) ** 2 < rng.uniform(10, 20) ** 2).astype(np.float32)
+        p = str(root / f"{i:04d}.jpg")
+        native.encode_jpeg(torch.from_numpy(img.astype(np.float32)).cuda(), p)
+        native.encode_jpeg(torch.from_numpy(mask).cuda(), p.replace(".jpg", "_mask.jpg"))
+        imgs.append(img)
+        masks.append(mask)
+        paths.append(p)
+    return paths, np.stack(imgs), np.stack(masks)
+
+
+def test_nvjpeg_decoder_holds_the_jpeg_bounds(cuda, tmp_path):
+    """nvJPEG's batched decode on the card: float frames within a mean of
+    0.015 of the float frames written, masks within 0.03 (harp_tpu's
+    bounds, tests/test_metro_ingestion.py), on the card, the same bits
+    twice."""
+    from harp_tpu_torch import native
+
+    paths, imgs, masks = _jpeg_layout(tmp_path)
+    got = native.decode_jpeg_batch(paths, device=cuda)
+    got_m = native.decode_jpeg_batch([p.replace(".jpg", "_mask.jpg") for p in paths],
+                                     gray=True, device=cuda)
+    assert got.is_cuda and got.shape == imgs.shape and got_m.shape == masks.shape
+    assert float((got.cpu() - torch.from_numpy(imgs)).abs().mean()) < 0.015
+    assert float((got_m.cpu() - torch.from_numpy(masks)).abs().mean()) < 0.03
+    assert torch.equal(got, native.decode_jpeg_batch(paths, device=cuda))
+
+
+def test_nvjpeg_decode_of_a_missing_or_bad_file_raises(cuda, tmp_path):
+    from harp_tpu_torch import native
+
+    paths, _, _ = _jpeg_layout(tmp_path, n=2)
+    with pytest.raises(OSError, match="missing.jpg cannot be opened"):
+        native.decode_jpeg_batch(paths + [str(tmp_path / "missing.jpg")], device=cuda)
+    bad = tmp_path / "bad.jpg"
+    bad.write_bytes(b"not a jpeg")
+    with pytest.raises(OSError, match="bad.jpg is not a decodable JPEG"):
+        native.decode_jpeg_batch(paths + [str(bad)], device=cuda)
+
+
+def test_preprocess_on_the_card_matches_the_cpu(cuda):
+    """The MANO fit's objective at its start (loss rtol 1e-5, gradient
+    within 1e-3 of each leaf's largest entry) and both smoothers at 50
+    iterations (within 1e-3 of each leaf's largest entry), on the card and
+    on the CPU. The fit's own trajectory is not compared: its first Adam
+    steps (lr 0.1) take the sign of a translation gradient that is
+    rounding noise at its start, so a 1e-7 change of the targets moves it
+    as far (chip_smoke.py, phase preprocess)."""
+    from harp_tpu_torch.assets import build_synthetic_hand
+    from harp_tpu_torch.models.mano import mano_forward
+    from harp_tpu_torch.preprocess import smooth_camera_sequence, smooth_pose_sequence
+    from harp_tpu_torch.preprocess.fit import mano_fit_objective
+
+    model = build_synthetic_hand()
+    rng = np.random.RandomState(0)
+    B = 6
+    pose = torch.from_numpy((0.3 * rng.randn(B, 48)).astype(np.float32))
+    betas = torch.from_numpy((0.3 * rng.randn(B, 10)).astype(np.float32))
+    trans = torch.from_numpy((0.05 * rng.randn(B, 3)).astype(np.float32))
+    target, joints = mano_forward(model, pose, betas, trans)
+    seq = {"rot": pose[:, :3].numpy(), "pose": pose[:, 3:].numpy(), "shape": betas.numpy(),
+           "trans": trans.numpy(), "cam": np.tile([5.0, 0.0, 0.0], (B, 1)).astype(np.float32),
+           "joints": joints.numpy() + rng.randn(B, 21, 3).astype(np.float32)}
+    runs = {}
+    for dev in ("cpu", cuda):
+        _, loss_fn, p = mano_fit_objective(model, target, device=dev)
+        p = {k: v.requires_grad_(True) for k, v in p.items()}
+        loss = loss_fn(p)
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        sp = smooth_pose_sequence(model, seq, total_iters=50, device=dev)
+        sc = smooth_camera_sequence(model, seq, total_iters=50, device=dev)
+        runs[str(dev)] = {"loss": loss.detach(), **{f"grad_{k}": g for k, g in grads.items()},
+                          "pose": sp["pose"], "rot": sp["rot"], "cam": sc["cam"]}
+        assert all(v.device.type == torch.device(dev).type for v in runs[str(dev)].values())
+    want, got = runs["cpu"], {k: v.cpu() for k, v in runs[str(cuda)].items()}
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * float(want["loss"])
+    for k in want:
+        assert (got[k] - want[k]).abs().max() <= 1e-3 * want[k].abs().max(), k
+
+
+def test_real_data_fit_with_logs_repeats_bit_equal(cuda, tmp_path, monkeypatch):
+    """The CLI's real-data path on the card at 64^2: model files and a
+    two-sequence layout written from the synthetic hand at reference
+    density, a 2-epoch fit with the image and val logs, twice: the same
+    saved parameters, bit for bit, and the logs written."""
+    import pickle
+
+    from harp_tpu_torch.assets import build_synthetic_assets, write_hand_model_files
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.data.dataset import write_sequence
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+    from harp_tpu_torch.fit_avatar import main
+    from harp_tpu_torch.models.zoo import load_hand_model
+
+    monkeypatch.chdir(tmp_path)
+    write_hand_model_files(build_synthetic_assets(uv_size=64, density="reference"),
+                           "MANO_RIGHT.pkl", "template/hand/textured_hand.obj",
+                           "template/hand/uv_mask.png")
+    config = HarpConfig(img_size=64, focal_length=2000.0 * 64 / 448, texture_size=64)
+    assets, _ = load_hand_model(config, mano_pkl="MANO_RIGHT.pkl")
+    for seq, seed in (("1", 0), ("2", 1)):
+        images, masks, _, _, init = make_synthetic_sequence(
+            assets, config, config.raster_config(cap=4096), n_frames=4, seed=seed,
+            device=cuda)
+        write_sequence(str(tmp_path), seq, images, masks, init)
+    argv = ["--metro-output-dir", ".", "--image-dir", ".", "--train-list", "1", "--val-list",
+            "2", "--mano-pkl", "MANO_RIGHT.pkl", "--img-size", "64", "--texture-size", "64",
+            "--stages", "1", "1", "0", "--epochs", "2", "--batch-size", "2",
+            "--raster-cap", "4096"]
+    saved = []
+    for run in ("a", "b"):
+        main(argv + ["--out", run])
+        for name in ("sil_0000.png", "0000.png", "val_0000.png", "uv_0000.png",
+                     "normal_0000.png", "fit_summary.json"):
+            assert (tmp_path / run / name).exists(), name
+        with open(tmp_path / run / "saved_params.pkl", "rb") as f:
+            saved.append(pickle.load(f))
+    for k in saved[0]:
+        np.testing.assert_array_equal(saved[0][k], saved[1][k], err_msg=k)
