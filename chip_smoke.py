@@ -28,6 +28,14 @@ per frame at 36 and 300 frames (real_data_decode); the CLI's real-data fit
 twice (bit-equal), its eval and val keys, its logs, and a known-appearance
 fit after it (real_data); preprocessing on the card: the MANO fit to the
 36 GT meshes, both smoothers, and the card against the CPU (preprocess).
+Between the fit phase and the arm, several sequences and ranks: the batch
+fit of 4 sequences of 18 frames (batch_fit: each sequence's update in a
+batch step the same bits as a lone step, two batch fits the same bits, S
+times one step's launches);
+fit_sequence on a one-rank NCCL mesh, the same bits as without a mesh, and
+on two gloo ranks sharing the card, against the card's unsharded fit
+(mesh_fit); a fit killed after its orbax checkpoint and resumed, the same
+bits as the unbroken fit, with the checkpointer's retention (orbax_resume).
 
     python3 chip_smoke.py
 
@@ -530,21 +538,15 @@ def flagship_sequence(dev, arm: bool = False) -> dict:
 
 
 def reset_launches() -> None:
-    from harp_tpu_torch.ops import segment as sg
-    from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
-    from harp_tpu_torch.render.kernels import raster_kernel as rk
+    from harp_tpu_torch.parallel.workers import reset_kernel_launches
 
-    for d in (rk.LAUNCHES, pk.LAUNCHES, sg.LAUNCHES):
-        for k in d:
-            d[k] = 0
+    reset_kernel_launches()
 
 
 def read_launches() -> dict:
-    from harp_tpu_torch.ops import segment as sg
-    from harp_tpu_torch.render.kernels import pcf_grad_kernel as pk
-    from harp_tpu_torch.render.kernels import raster_kernel as rk
+    from harp_tpu_torch.parallel.workers import kernel_launches
 
-    return dict(rk.LAUNCHES, **pk.LAUNCHES, **sg.LAUNCHES)
+    return kernel_launches()
 
 
 def expected_launches(n2: int, n1: int, n3: int, tex_reg: bool = True,
@@ -883,7 +885,269 @@ def phase_fit(dev, seq) -> dict:
         fail(f"fit: two fits from one seed differ: {spread}")
     emit({"phase": "fit", "frames": B_STEP, "epochs": config.total_epoch,
           "stages": list(config.training_stage), **out, "fit2_param_max_abs_diff": spread})
-    return out["launches"]
+    return {"config": config, "params": finals[0], "losses": out["epoch_losses"],
+            "launches": out["launches"]}
+
+
+BATCH_S = 4  # sequences of the batch fit (seeds 0 to 3)
+# Its per-tile face capacity: seed 1's hand puts more than the flagship's
+# 448 faces into one camera tile and 3 x 448 into one light tile (one
+# bin_overflow and one light_bin_overflow a step at 448).
+BATCH_CAP = 576
+# Ranks of mesh_fit's gloo phase, sharing the one card, and the bound of
+# harp_tpu's tests/test_parallel.py for a frame-split fit: Adam normalises
+# each gradient by its RMS, so an entry whose gradient is rounding noise
+# may step either way (epochs * 3 * lr + 2e-6).
+MESH_RANKS = 2
+
+
+def _differ(a: dict, b: dict) -> dict:
+    """The leaves of two parameter dicts that are not the same bits, with
+    their max |a - b|."""
+    import torch
+
+    out = {}
+    for k, x in a.items():
+        x, y = x.detach(), b[k].detach().to(x.device)
+        if not torch.equal(x, y):
+            out[k] = float((x.float() - y.float()).abs().max())
+    return out
+
+
+def phase_batch_fit(dev, seq) -> None:
+    """fit_sequences_batch at full width: 4 synthetic sequences of 18
+    frames (seeds 0-3) of the flagship hand at reference density, 448^2,
+    texture 512^2, self-shadow, VGG bf16 on both sides (no GT cache, as
+    harp_tpu's batch fit), stages 1 / 1 / 1. One stage-2 batch step: each
+    sequence's update the same bits as a lone TrainStep on the same
+    minibatch and key, and S times one step's kernel launches; wall ms per
+    batch step (median of 3 warm), frames / s over the S x 18 frames, peak
+    memory; then two batch fits, which must be the same bits. The tile
+    capacity is BATCH_CAP (the light's 3x): every overflow counter 0."""
+    import dataclasses
+
+    import torch
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+    from harp_tpu_torch.fit.batch import BatchFitData, fit_sequences_batch, make_batch_train_step
+    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, make_train_step, prng_key, split_key
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.render import pipeline
+
+    config = dataclasses.replace(seq["config"], w_vgg=1.0, vgg_compute_dtype="bfloat16",
+                                 training_stage=(1, 1, 1), total_epoch=3)
+    assets, rcfg = seq["assets"], dataclasses.replace(seq["rcfg"], cap=BATCH_CAP)
+    frames, inits = [(seq["images"], seq["masks"], seq["masks_er"])], [seq["init"]]
+    for s in range(1, BATCH_S):
+        images, masks, masks_er, _, init = make_synthetic_sequence(
+            assets, config, rcfg, n_frames=B_STEP, seed=s, device=dev)
+        frames.append((images, masks, masks_er))
+        inits.append(init)
+    data = BatchFitData(*[torch.stack([f[i] for f in frames]) for i in range(3)])
+    del frames
+
+    def fresh():
+        pairs = [init_params(i, assets, config, device=dev) for i in inits]
+        return [p for p, _ in pairs], [a for _, a in pairs]
+
+    # One stage-2 batch step against lone steps from the same state.
+    params, aux = fresh()
+    start = [{k: v.detach().clone() for k, v in p.items()} for p in params]
+    fids = [torch.arange(B_STEP, device=dev)] * BATCH_S
+    keys = split_key(prng_key(0), BATCH_S + 1)[1:]
+    with torch.no_grad():
+        refs = [pipeline.mesh_forward(p, fids[0][:1], assets, config)[0][0] for p in params]
+    seqs = [data.sequence(s) for s in range(BATCH_S)]
+    batch = [[q.images for q in seqs], [q.masks for q in seqs], [q.masks_eroded for q in seqs]]
+    step = make_batch_train_step(assets, config, rcfg, params, device=dev)
+    reset_launches()
+    _, breakdowns = step(aux, fids, *batch, refs, keys, [1.0] * BATCH_S, coarse_on=True,
+                         app_on=True)
+    launches = read_launches()
+    counters = [{k: float(br[k]) for k in OVERFLOW_KEYS} for br in breakdowns]
+    one = expected_launches(1, 0, 0)
+    if launches != {k: BATCH_S * v for k, v in one.items()}:
+        fail(f"batch_fit: launches {launches}, expected {BATCH_S} x {one}")
+    lone_diff = {}
+    for s in range(BATCH_S):
+        lone = {k: v.clone().requires_grad_(True) for k, v in start[s].items()}
+        make_train_step(assets, config, rcfg, lone, device=dev)(
+            aux[s], fids[s], *(b[s] for b in batch), refs[s], 1.0, coarse_on=True,
+            app_on=True, key=keys[s])
+        lone_diff.update({f"{s}/{k}": v for k, v in _differ(lone, params[s]).items()})
+    if lone_diff:
+        fail(f"batch_fit: batch step vs lone steps differ: {lone_diff}")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(aux, fids, *batch, refs, keys, [1.0] * BATCH_S, coarse_on=True, app_on=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = float(np.median(times[1:])) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del step, params, aux, start
+
+    fits = []
+    for _ in range(2):
+        params, aux = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, hist = fit_sequences_batch(config, assets, data, params, aux, rcfg=rcfg, device=dev)
+        torch.cuda.synchronize()
+        fits.append((out, hist, time.perf_counter() - t0))
+    (p0, h0, fit_s), (p1, h1, _) = fits
+    spread = {f"{s}/{k}": v for s in range(BATCH_S) for k, v in _differ(p0[s], p1[s]).items()}
+    if spread or h0 != h1:
+        fail(f"batch_fit: two batch fits differ: {spread}")
+    losses = [[h["loss"] for h in hs] for hs in h0]
+    overflow = [[h["raster_overflow"] for h in hs] for hs in h0]
+    if not all(np.isfinite(x) for ls in losses for x in ls):
+        fail(f"batch_fit: epoch losses {losses}")
+    if any(v for c in counters for v in c.values()) or any(v for o in overflow for v in o):
+        fail(f"batch_fit: raster overflow: step {counters}, fit {overflow}")
+    emit({"phase": "batch_fit", "sequences": BATCH_S, "frames": B_STEP, "img": config.img_size,
+          "vgg_compute_dtype": "bfloat16", "vgg_gt_cache": False,
+          "stages": list(config.training_stage), "step_launches": launches,
+          "batch_step_ms_median": step_ms, "batch_step_ms_all": [t * 1e3 for t in times],
+          "frames_per_s": BATCH_S * B_STEP / (step_ms / 1e3), "peak_mem_gib": peak,
+          "fit_s": fit_s, "epoch_losses": losses,
+          "raster_cap": rcfg.cap, "raster_overflow": overflow,
+          "step_overflow_counters": counters,
+          "lone_vs_batch_differ": lone_diff, "fit2_differ": spread})
+
+
+def phase_mesh_fit(dev, seq, fit: dict) -> None:
+    """(a) fit_sequence on a one-rank NCCL mesh at the fit phase's setting:
+    the same bits as that phase's fit without a mesh; the halo at world
+    size 1. (b) Two gloo ranks sharing the card (parallel.launch; 9 of the
+    18 frames each), stages 1 / 1 / 1, twice: the two runs the same bits,
+    the loss history within rtol 1e-4 of the card's unsharded fit, the
+    parameters within harp_tpu's frame-split bound, both ranks through K1,
+    K2, K3 and segment_sum; gloo all-reduces and broadcasts the CUDA
+    gradients and parameters, and neighbor_shift stages its rows through
+    the host (gloo sends no CUDA tensors). One card: no scaling claim."""
+    import dataclasses
+
+    import torch
+    from harp_tpu_torch.fit.driver import FitData, fit_sequence
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.parallel import make_mesh, neighbor_shift, workers
+    from harp_tpu_torch.parallel.launch import launch
+
+    data = FitData(seq["images"], seq["masks"], seq["masks_er"])
+    x = torch.arange(B_STEP * 3, dtype=torch.float32, device=dev).reshape(B_STEP, 3)
+    fid = torch.arange(B_STEP, device=dev)
+    want_left, want_right = x[(fid - 1).clamp(min=0)], x[(fid + 1).clamp(max=B_STEP - 1)]
+    params, aux = init_params(seq["init"], seq["assets"], fit["config"], device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    with make_mesh(1, device=dev) as mesh:
+        if mesh.backend != "nccl":
+            fail(f"mesh_fit: a CUDA mesh runs {mesh.backend}")
+        params, _ = fit_sequence(fit["config"], seq["assets"], data, params, aux,
+                                 rcfg=seq["rcfg"], mesh=mesh)
+        left, right = neighbor_shift(mesh, x)
+    torch.cuda.synchronize()
+    nccl_s = time.perf_counter() - t0
+    nccl_launches = read_launches()
+    nccl_differ = _differ(params, fit["params"])
+    if nccl_differ or nccl_launches != fit["launches"]:
+        fail(f"mesh_fit: the one-rank NCCL fit differs from the fit: {nccl_differ}, "
+             f"launches {nccl_launches} against {fit['launches']}")
+    if not (torch.equal(left, want_left) and torch.equal(right, want_right)):
+        fail("mesh_fit: neighbor_shift at world size 1")
+
+    config = dataclasses.replace(fit["config"], training_stage=(1, 1, 1), total_epoch=3)
+    params, aux = init_params(seq["init"], seq["assets"], config, device=dev)
+    want, want_hist = fit_sequence(config, seq["assets"], data, params, aux, rcfg=seq["rcfg"],
+                                   device=dev)
+    scene = {"assets": seq["assets"], "config": config, "rcfg": seq["rcfg"],
+             "init": seq["init"], "frames": tuple(t.cpu().numpy() for t in (
+                 seq["images"], seq["masks"], seq["masks_er"]))}
+    t0 = time.perf_counter()
+    fits, (h_left, h_right) = launch(
+        workers.run_all, MESH_RANKS, [(workers.fit_sequence_on_mesh, (scene, 2)),
+                                      (workers.neighbor_shift_on_mesh, (x.cpu().numpy(),))],
+        devices=[str(dev)] * MESH_RANKS, backend="gloo", timeout=600)
+    gloo_s = time.perf_counter() - t0
+    runs = fits["runs"]
+    run_differ = {k: float(np.abs(runs[0]["params"][k] - runs[1]["params"][k]).max())
+                  for k in runs[0]["params"]
+                  if not np.array_equal(runs[0]["params"][k], runs[1]["params"][k])}
+    if run_differ or runs[0]["history"] != runs[1]["history"]:
+        fail(f"mesh_fit: two gloo fits differ: {run_differ}")
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(runs[0]["history"], want_hist)]
+    lr = max(config.lr_pose, config.lr_app)
+    bound = config.total_epoch * 3 * lr + 2e-6
+    param_err = {k: float(np.max(np.abs(runs[0]["params"][k] - v.detach().cpu().numpy())
+                                 - 2e-4 * np.abs(v.detach().cpu().numpy())))
+                 for k, v in want.items()}
+    over = {k: e for k, e in param_err.items() if e > bound}
+    if len(runs[0]["history"]) != len(want_hist) or max(loss_rel) > 1e-4 or over:
+        fail(f"mesh_fit: two gloo ranks against the unsharded fit: loss rel {loss_rel}, "
+             f"parameters beyond {bound}: {over}")
+    per_rank = dict(expected_launches(1, 1, 1), segment_sum=expected_launches(1, 1, 1)[
+        "segment_sum"] + 1)  # + the ARAP reference's vertex normals
+    per_rank = {k: 2 * v for k, v in per_rank.items()}
+    if fits["launches"] != [per_rank] * MESH_RANKS:
+        fail(f"mesh_fit: rank launches {fits['launches']}, expected {per_rank} each")
+    if not (np.array_equal(h_left, want_left.cpu().numpy())
+            and np.array_equal(h_right, want_right.cpu().numpy())):
+        fail("mesh_fit: neighbor_shift of CUDA rows over gloo")
+    emit({"phase": "mesh_fit", "card_count": torch.cuda.device_count(),
+          "nccl_world_1": {"epochs": fit["config"].total_epoch, "fit_s": nccl_s,
+                           "differ_from_fit": nccl_differ, "launches": nccl_launches},
+          "gloo_ranks_sharing_one_card": {
+              "ranks": MESH_RANKS, "frames_per_rank": B_STEP // MESH_RANKS,
+              "stages": list(config.training_stage), "launch_s_two_fits": gloo_s,
+              "epoch_losses": [h["loss"] for h in runs[0]["history"]],
+              "unsharded_epoch_losses": [h["loss"] for h in want_hist],
+              "loss_rel_err": loss_rel, "param_excess_over_rtol": param_err,
+              "bound": bound, "rank_launches": fits["launches"],
+              "runs_differ": run_differ},
+          "gloo_cuda": {"all_reduce": "used by the fit", "broadcast": "used by the fit",
+                        "send_recv": "not used: neighbor_shift stages its rows through "
+                                     "the host on a gloo mesh of CUDA devices"}})
+
+
+def phase_orbax_resume(dev, seq, fit: dict) -> None:
+    """The fit phase's fit with checkpoint_backend "orbax", killed after
+    its epoch-4 checkpoint (checkpoints every epoch, max_to_keep 3: steps
+    2, 3, 4 left) and resumed through load_fit_checkpoint: the same bits as
+    the fit phase's unbroken fit."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from harp_tpu_torch.fit.driver import FitData, fit_sequence
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.fit.resume import load_fit_checkpoint
+
+    config = dataclasses.replace(fit["config"], checkpoint_backend="orbax")
+    data = FitData(seq["images"], seq["masks"], seq["masks_er"])
+    with tempfile.TemporaryDirectory() as tmp:
+        params, aux = init_params(seq["init"], seq["assets"], config, device=dev)
+        t0 = time.perf_counter()
+        fit_sequence(dataclasses.replace(config, total_epoch=config.total_epoch - 1),
+                     seq["assets"], data, params, aux, rcfg=seq["rcfg"], out_dir=tmp,
+                     checkpoint_every=1, device=dev)
+        killed_s = time.perf_counter() - t0
+        steps = sorted(os.listdir(os.path.join(tmp, "orbax")))
+        ck = load_fit_checkpoint(tmp, device=dev)
+        _, aux = init_params(seq["init"], seq["assets"], config, device=dev)
+        resumed, hist = fit_sequence(config, seq["assets"], data, ck["params"], aux,
+                                     rcfg=seq["rcfg"], resume=ck, device=dev)
+    differ = _differ(resumed, fit["params"])
+    last = config.total_epoch - 1
+    if (steps != [str(e) for e in range(last - 3, last)] or int(ck["epoch"]) != last - 1
+            or [h["epoch"] for h in hist] != [last] or hist[0]["loss"] != fit["losses"][-1]
+            or differ):
+        fail(f"orbax_resume: steps {steps}, resumed at {ck['epoch']}, history {hist}, "
+             f"differs from the unbroken fit: {differ}")
+    emit({"phase": "orbax_resume", "steps_kept": steps, "resumed_from": int(ck["epoch"]),
+          "killed_fit_s": killed_s, "last_loss": hist[0]["loss"], "differ_from_fit": differ})
 
 
 def phase_arm_budget(dev, seq) -> None:
@@ -1451,8 +1715,12 @@ def main() -> int:
     # The headline main path: the step with VGG, whose launches the kernels line reports.
     launches, _ = phase_step(dev, seq, vgg_dtype="bfloat16")
     phase_vgg_f32(dev, seq)
-    phase_fit(dev, seq)
-    del seq
+    fit = phase_fit(dev, seq)
+    # Several sequences and ranks, and the async checkpointer.
+    phase_batch_fit(dev, seq)
+    phase_mesh_fit(dev, seq, fit)
+    phase_orbax_resume(dev, seq, fit)
+    del seq, fit
     # The SMPL-X arm at reference density (harp_tpu's value_arm_b18), then
     # HTML and NIMBLE; each path's launches read from its own run.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

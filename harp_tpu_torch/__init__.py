@@ -16,11 +16,16 @@ The module tree mirrors harp_tpu/ so each counterpart is easy to find:
                          VGG16 perceptual loss (cuDNN convolutions)
     fit/                 parameters, the two Adam groups, the train step,
                          fit_sequence (the staged epochs, checkpoints,
-                         resume) and evaluate_sequence
+                         resume, frame-parallel on a mesh),
+                         fit_sequences_batch (many sequences) and
+                         evaluate_sequence
+    parallel/            meshes of processes over torch.distributed (NCCL,
+                         gloo), the halo exchange, a launcher of local ranks
     eval/                IoU, L1, MS-SSIM, the VGG perceptual proxy,
                          Procrustes
-    utils/               checkpoint / result IO, JSONL metrics and
-                         profiling, PNG visual outputs
+    utils/               checkpoint / result IO, the async checkpointer
+                         (orbax_io.py), JSONL metrics and profiling, PNG
+                         visual outputs
     data/                synthetic ground-truth sequences
     fit_avatar.py        the CLI: python -m harp_tpu_torch.fit_avatar --synthetic
 

@@ -1,6 +1,7 @@
-"""Carry harp_tpu's assets and fit parameters over to this package.
+"""Carry harp_tpu's assets, fit parameters and optimizer states over to
+this package.
 
-Both take plain arrays (harp_tpu's asset dataclasses hold numpy arrays;
+All take plain arrays (harp_tpu's asset dataclasses hold numpy arrays;
 its parameters convert with np.asarray), so nothing of harp_tpu is
 imported: the objects are read field by field.
 """
@@ -77,3 +78,47 @@ def params_from_numpy(params: dict, device) -> dict:
     return {k: torch.tensor(np.asarray(v, np.float32), device=device,
                             requires_grad=True)
             for k, v in params.items()}
+
+
+def _adam_state(tree):
+    """(count, mu, nu) of the one Adam state in an optax state tree:
+    named tuples (optax's own classes, as harp_tpu restores them) or the
+    dicts and lists an untyped restore gives."""
+    if isinstance(tree, dict) and {"count", "mu", "nu"} <= set(tree):
+        return tree["count"], tree["mu"], tree["nu"]
+    fields = getattr(tree, "_fields", ())
+    if {"count", "mu", "nu"} <= set(fields):
+        return tree.count, tree.mu, tree.nu
+    children = tree.values() if isinstance(tree, dict) else (
+        tree if isinstance(tree, (list, tuple)) else ())
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_states_from_numpy(opt_states: dict, params: dict, config, device) -> dict:
+    """harp_tpu's optax states of the "coarse" and "app" groups (each
+    chain(masked(adam), masked(set_to_zero))) -> this package's
+    {"coarse": Adam.state_dict(), "app": ...} for fit_sequence's resume:
+    optax's count, then mu and nu of the group's (unmasked) leaves, become
+    each parameter's step, exp_avg and exp_avg_sq. params: this package's
+    parameters (params_from_numpy of the same checkpoint)."""
+    from harp_tpu_torch.fit.optimizer import build_optimizers, group_param_names
+
+    names = group_param_names(config)
+    out = {}
+    for g, opt in build_optimizers(params, config).items():
+        found = _adam_state(opt_states[g])
+        if found is None:
+            raise ValueError(f"opt_states[{g!r}] holds no Adam state (count, mu, nu)")
+        count, mu, nu = found
+        for name, p in zip(names[g], opt.param_groups[0]["params"]):
+            opt.state[p] = {
+                "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+                "exp_avg": torch.tensor(np.asarray(mu[name], np.float32), device=device),
+                "exp_avg_sq": torch.tensor(np.asarray(nu[name], np.float32), device=device),
+            }
+        out[g] = opt.state_dict()
+    return out

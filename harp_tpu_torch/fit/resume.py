@@ -8,8 +8,9 @@
   (texture, normal map, displacements, shape) is kept; then the 30-frame
   pose interpolation, the mean-pooled translation and rotation, and the
   backfills of wrist_pose, amb_ratio and normal_map.
-- load_fit_checkpoint: a mid-protocol checkpoint (checkpoint.pt) for
-  fit_sequence's `resume`.
+- load_fit_checkpoint: a mid-protocol checkpoint (checkpoint.pt, or the
+  latest step of an orbax/ tree of utils/orbax_io.py) for fit_sequence's
+  `resume`.
 """
 
 from __future__ import annotations
@@ -72,19 +73,35 @@ def prepare_resume_params(start_from: str, input_params: dict, config,
 
 
 def load_fit_checkpoint(path: str, device=None) -> dict:
-    """A mid-protocol checkpoint: `path` is a checkpoint.pt or a run
-    directory holding one. Returns the payload {params, opt_states, epoch,
-    plateau_scale, extra} with the parameters on `device` (CUDA unless
-    given): pass payload["params"] to fit_sequence as its params and the
-    payload as its `resume`. harp_tpu's Orbax checkpoint trees (an orbax/
-    directory) are refused: their reader comes with the slice that ports
-    utils/orbax_io.py."""
+    """A mid-protocol checkpoint: `path` is a checkpoint.pt, a run
+    directory holding one, or a run directory holding an orbax/ tree of
+    utils/orbax_io.OrbaxCheckpointer's steps (its latest step is read; it
+    wins over a checkpoint.pt beside it, as harp_tpu's does). Returns the
+    payload {params, opt_states, epoch, plateau_scale, extra} with the
+    parameters on `device` (CUDA unless given): pass payload["params"] to
+    fit_sequence as its params and the payload as its `resume`.
+
+    harp_tpu's own Orbax trees (OCDBT) cannot be read without JAX and are
+    refused. Carry one across where JAX runs: harp_tpu's
+    fit.resume.load_fit_checkpoint reads it, then
+    convert.params_from_numpy(payload["params"]) and
+    convert.opt_states_from_numpy(payload["opt_states"], ...) give this
+    package's params and Adam states for `resume`."""
+    from harp_tpu_torch.utils.orbax_io import OrbaxCheckpointer, is_ocdbt_tree
+
     dev = resolve_device(device)
-    if (os.path.basename(os.path.normpath(path)) == "orbax"
-            or os.path.isdir(os.path.join(path, "orbax"))):
-        raise NotImplementedError(
-            f"{path}: Orbax checkpoints are not read yet; they come with the next slice "
-            "(fit/batch.py, parallel/ on torch.distributed and utils/orbax_io.py)")
+    norm = os.path.normpath(path)
+    run_dir = os.path.dirname(norm) if os.path.basename(norm) == "orbax" else path
+    tree = os.path.join(run_dir, "orbax")
+    if os.path.isdir(tree):
+        if is_ocdbt_tree(tree):
+            raise ValueError(
+                f"{tree} is harp_tpu's Orbax (OCDBT) checkpoint, which this package cannot "
+                "read: load it with harp_tpu.fit.resume.load_fit_checkpoint where JAX runs, "
+                "then carry it across with harp_tpu_torch.convert.params_from_numpy and "
+                "harp_tpu_torch.convert.opt_states_from_numpy")
+        with OrbaxCheckpointer(run_dir) as ckpt:
+            return ckpt.restore(device=dev)
     if os.path.isdir(path):
         path = os.path.join(path, "checkpoint.pt")
     return load_checkpoint(path, device=dev)

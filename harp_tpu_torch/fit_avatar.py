@@ -13,24 +13,29 @@ data paths:
   logged during the fit and evaluated after it with their own
   preprocessing pose and camera (under val/). --start-from a previous run
   (with --known-appearance: its fitted appearance on a new sequence), or
-  --resume-orbax a run directory's checkpoint.pt mid-protocol;
+  --resume-orbax a run directory's checkpoint mid-protocol (its
+  checkpoint.pt, or the latest step of its orbax/ tree);
 - --synthetic: a procedural MANO-topology hand (with --use-arm the SMPL-X
   arm around it) rendered at known parameters and fitted from a perturbed
   start.
 
-Runs on CUDA unless --device names another device.
+Runs on CUDA unless --device names another device. --mesh-devices N fits
+the sequence frame-parallel on N ranks (one process each: CUDA devices
+0..N-1 over NCCL, or with --device cpu N gloo ranks); rank 0 writes and
+prints the outputs. --checkpoint-backend orbax writes the checkpoints
+through the async checkpointer (utils/orbax_io.py) under --out/orbax/.
 
     python -m harp_tpu_torch.fit_avatar --metro-output-dir data --image-dir data \\
         --train-list 1 --val-list 2 --mano-pkl mano/models/MANO_RIGHT.pkl --out exp/run
     python -m harp_tpu_torch.fit_avatar --metro-output-dir data --image-dir data \\
         --train-list 2 --start-from exp/run --known-appearance --out exp/run2
     python -m harp_tpu_torch.fit_avatar --synthetic --n-frames 36 --out exp/syn
+    python -m harp_tpu_torch.fit_avatar --synthetic --mesh-devices 2 --out exp/mesh
 
 Writes config.yaml, metrics.jsonl, the image logs every 10 epochs,
-saved_params.pkl, checkpoint.pt, the eval composites and maps,
+saved_params.pkl, checkpoint.pt (or orbax/), the eval composites and maps,
 eval_results.txt and fit_summary.json under --out, and prints the summary.
-Multi-device fits, epoch scans and Orbax checkpoints (the next slice) and
-turntables (render_360) are not ported: their flags raise.
+Epoch scans and turntables (render_360) are not ported: their flags raise.
 """
 
 from __future__ import annotations
@@ -40,10 +45,8 @@ import json
 import os
 
 # What each refused flag waits for.
-_NEXT_SLICE = "the next slice (fit/batch.py, parallel/ on torch.distributed, utils/orbax_io.py)"
-_LATER = {"--mesh-devices": _NEXT_SLICE, "--epoch-scan > 1": _NEXT_SLICE,
-          "--checkpoint-backend orbax": _NEXT_SLICE,
-          "--turntables": "the slice that ports render_360 and the turntables"}
+_LATER = {"--epoch-scan > 1": "ROADMAP Queue 1 item 2, the step as one CUDA graph",
+          "--turntables": "ROADMAP Queue 1 item 6, render_360 and the turntables"}
 
 
 def parse_args(argv=None):
@@ -89,21 +92,23 @@ def parse_args(argv=None):
     p.add_argument("--arm-corr", default="template/arm/smplx_arm_corr.pkl")
     p.add_argument("--resume-orbax", default="",
                    help="resume mid-protocol from a checkpoint.pt or a run directory "
-                        "holding one (params, optimizer, epoch, plateau state)")
+                        "holding one or an orbax/ tree (params, optimizer, epoch, plateau "
+                        "state)")
     p.add_argument("--uint8-frames", action="store_true",
                    help="store frames and masks as uint8 on the device (decoded per minibatch)")
     p.add_argument("--reference-exact", action="store_true",
                    help="HarpConfig.reference_exact(): the reference's numeric semantics")
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="fit frame-parallel on this many ranks (CUDA devices 0..N-1, or "
+                        "N gloo ranks with --device cpu); 0: one process")
+    p.add_argument("--checkpoint-backend", default="pickle", choices=["pickle", "orbax"],
+                   help="checkpoint.pt, or the async checkpointer's orbax/ tree")
     # harp_tpu flags whose parts are not ported: refused unless left off.
-    p.add_argument("--mesh-devices", type=int, default=0)
     p.add_argument("--epoch-scan", type=int, default=0)
-    p.add_argument("--checkpoint-backend", default="pickle", choices=["pickle", "orbax"])
     p.add_argument("--turntables", action="store_true")
     args = p.parse_args(argv)
     refused = [name for name, on in (
-        ("--mesh-devices", args.mesh_devices), ("--epoch-scan > 1", args.epoch_scan > 1),
-        ("--checkpoint-backend orbax", args.checkpoint_backend == "orbax"),
-        ("--turntables", args.turntables)) if on]
+        ("--epoch-scan > 1", args.epoch_scan > 1), ("--turntables", args.turntables)) if on]
     if refused:
         p.error("not ported yet: " + "; ".join(f"{k} (comes with {_LATER[k]})" for k in refused))
     if args.synthetic:
@@ -192,7 +197,36 @@ def load_inputs(args, config, dev) -> dict:
 
 
 def main(argv=None) -> dict:
+    """Parse, fit, evaluate and print the summary (returned; with
+    --mesh-devices, rank 0's)."""
     args = parse_args(argv)
+    if not args.mesh_devices:
+        return _run(args)
+    import torch
+
+    from harp_tpu_torch import fit_avatar  # _rank_main by its module's name, under -m too
+    from harp_tpu_torch.parallel.launch import launch
+
+    n = args.mesh_devices
+    if args.device is None or torch.device(args.device).type == "cuda":
+        if n > torch.cuda.device_count():
+            raise ValueError(f"--mesh-devices {n} needs {n} CUDA devices; "
+                             f"torch.cuda.device_count() is {torch.cuda.device_count()}")
+        devices = [f"cuda:{r}" for r in range(n)]
+    else:
+        devices = [args.device] * n
+    return launch(fit_avatar._rank_main, n, args, devices=devices)
+
+
+def _rank_main(mesh, args) -> dict | None:
+    """One rank of a --mesh-devices fit, on the mesh's device."""
+    args.device = str(mesh.device)
+    return _run(args, mesh)
+
+
+def _run(args, mesh=None) -> dict | None:
+    """The fit, its eval and the summary. With a mesh every rank fits its
+    rows of each minibatch; rank 0 writes, evaluates and prints."""
     import torch
 
     from harp_tpu_torch.device import resolve_device
@@ -205,8 +239,10 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     config = _config(args)
-    os.makedirs(config.base_output_dir, exist_ok=True)
-    config.to_yaml(os.path.join(config.base_output_dir, "config.yaml"))
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        os.makedirs(config.base_output_dir, exist_ok=True)
+        config.to_yaml(os.path.join(config.base_output_dir, "config.yaml"))
     rcfg = config.raster_config()
 
     inputs = load_inputs(args, config, dev)
@@ -219,7 +255,8 @@ def main(argv=None) -> dict:
     if args.resume_orbax:
         resume = load_fit_checkpoint(args.resume_orbax, device=dev)
         params = resume["params"]
-        print(f"resuming at epoch {int(resume['epoch']) + 1} from {args.resume_orbax}")
+        if lead:
+            print(f"resuming at epoch {int(resume['epoch']) + 1} from {args.resume_orbax}")
     val_kwargs = {}
     if val is not None:
         val_kwargs = dict(val_data=val[1], val_params={
@@ -228,7 +265,10 @@ def main(argv=None) -> dict:
     with Timer(dev) as t_fit:
         params, history = fit_sequence(config, assets, data, params, aux, rcfg=rcfg,
                                        out_dir=config.base_output_dir, image_log_every=10,
-                                       resume=resume, extras=extras, device=dev, **val_kwargs)
+                                       resume=resume, extras=extras, device=dev, mesh=mesh,
+                                       **val_kwargs)
+    if not lead:
+        return None
     save_result(params, config.base_output_dir, test=config.known_appearance)
     with Timer(dev) as t_eval:
         stats = evaluate_sequence(config, assets, data, params, aux, rcfg=rcfg, device=dev,
@@ -251,6 +291,7 @@ def main(argv=None) -> dict:
     stats["eval_wall_s"] = t_eval.elapsed
     stats["final_loss"] = history[-1]["loss"] if history else None
     stats["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev))
+    stats["ranks"] = 1 if mesh is None else mesh.world_size
     print(json.dumps(stats, indent=2))
     with open(os.path.join(config.base_output_dir, "fit_summary.json"), "w") as f:
         json.dump(stats, f, indent=2)

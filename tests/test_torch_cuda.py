@@ -276,14 +276,14 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda):
                        RasterConfig(image_size=36, tile=6, cap=64))
 
 
-def _light_fit_scene(cuda, n_frames=2):
-    """The light hand at 32^2 with VGG on (bf16, cached GT): its synthetic
-    sequence rendered on the card, config, raster config and init."""
+def _light_fit_scene(cuda, n_frames=2, img=32):
+    """The light hand at img^2 (32 unless given) with VGG on (bf16, cached
+    GT): its synthetic sequence rendered on the card, config, raster config
+    and init."""
     from harp_tpu_torch.assets import build_synthetic_assets
     from harp_tpu_torch.config import HarpConfig
     from harp_tpu_torch.data.synthetic import make_synthetic_sequence
 
-    img = 32
     assets = build_synthetic_assets(uv_size=64, density="light")
     config = HarpConfig(img_size=img, focal_length=2000.0 * img / 448, texture_size=64,
                         self_shadow=True, w_vgg=1.0, batch_size=n_frames,
@@ -580,3 +580,66 @@ def test_real_data_fit_with_logs_repeats_bit_equal(cuda, tmp_path, monkeypatch):
             saved.append(pickle.load(f))
     for k in saved[0]:
         np.testing.assert_array_equal(saved[0][k], saved[1][k], err_msg=k)
+
+
+def test_world_one_nccl_mesh_fit_equals_the_unsharded_fit(cuda):
+    """fit_sequence(mesh=make_mesh(1)) over NCCL at 64^2 (stages 1 / 1 / 1,
+    VGG bf16, 2 frames): the same history and final parameters as the fit
+    with mesh=None, bit for bit (the one-rank all-reduce and mean are exact)."""
+    from harp_tpu_torch.fit.driver import FitData, fit_sequence
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.parallel import make_mesh
+
+    assets, config, rcfg, data, init = _light_fit_scene(cuda, img=64)
+    runs = []
+    for on_mesh in (False, True):
+        params, aux = init_params(init, assets, config, device=cuda)
+        if on_mesh:
+            with make_mesh(1, device=cuda) as mesh:
+                assert mesh.backend == "nccl" and mesh.world_size == 1
+                runs.append(fit_sequence(config, assets, FitData(*data), params, aux,
+                                         rcfg=rcfg, mesh=mesh))
+        else:
+            runs.append(fit_sequence(config, assets, FitData(*data), params, aux, rcfg=rcfg,
+                                     device=cuda))
+    assert not torch.distributed.is_initialized()
+    (p0, h0), (p1, h1) = runs
+    assert h0 == h1 and [h["epoch"] for h in h0] == [0, 1, 2]
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+
+
+def test_orbax_checkpointer_snapshots_cuda_state(cuda, tmp_path):
+    """save() copies CUDA parameters and Adam moments to the host before it
+    returns: an Adam step taken while the writer is held does not reach
+    the checkpoint."""
+    import threading
+
+    from harp_tpu_torch.utils.orbax_io import OrbaxCheckpointer
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = {"pose": torch.randn(18, 45, device=cuda, generator=g).requires_grad_(True),
+              "texture": torch.rand(64, 64, 3, device=cuda, generator=g).requires_grad_(True)}
+    opt = torch.optim.Adam(params.values(), lr=0.1)
+
+    def adam_step():
+        opt.zero_grad()
+        sum((p ** 2).sum() for p in params.values()).backward()
+        opt.step()
+
+    adam_step()
+    want = {k: v.detach().clone() for k, v in params.items()}
+    want_m = opt.state[params["texture"]]["exp_avg"].clone()
+    gate = threading.Event()
+    with OrbaxCheckpointer(str(tmp_path)) as ckpt:
+        ckpt._writer.submit(gate.wait)  # hold the writer while the state moves
+        ckpt.save(1, params, {"coarse": opt.state_dict()})
+        adam_step()  # in place, on the card
+        gate.set()
+        ckpt.wait()
+        got = ckpt.restore(device=cuda)
+    assert got["params"]["pose"].is_cuda
+    for k, v in want.items():
+        assert torch.equal(got["params"][k], v), k
+        assert not torch.equal(params[k].detach(), v), k
+    assert torch.equal(got["opt_states"]["coarse"]["state"][1]["exp_avg"], want_m.cpu())

@@ -322,10 +322,14 @@ def test_cli_runs_a_tiny_synthetic_arm_fit_on_cpu(tmp_path):
 def test_cli_refuses_what_is_not_ported_and_needs_a_device(monkeypatch, tmp_path):
     from harp_tpu_torch.fit_avatar import main
 
-    for flags in (["--use-arm", "--smplx-npz", "SMPLX_NEUTRAL.npz"], ["--mesh-devices", "2"],
-                  ["--turntables"], []):
+    for flags in (["--use-arm", "--smplx-npz", "SMPLX_NEUTRAL.npz"], ["--turntables"], []):
         with pytest.raises(SystemExit):
             main((["--synthetic"] if flags else []) + flags + ["--device", "cpu"])
+    # --mesh-devices beyond the visible CUDA devices raises: no fewer ranks,
+    # no quiet fall-back to the CPU.
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"device_count\(\) is 1"):
+        main(["--synthetic", "--mesh-devices", "2", "--out", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--synthetic", "--out", str(tmp_path)])

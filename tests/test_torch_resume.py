@@ -7,7 +7,8 @@
 - A CLI fit killed after its epoch-2 checkpoint and resumed with
   --resume-orbax from the run directory ends on the same bits as the
   unbroken CLI fit (one thread).
-- An Orbax checkpoint directory is refused, naming the slice that reads it.
+- harp_tpu's Orbax (OCDBT) tree is refused, naming the converter that
+  carries it across; the port's own orbax/ tree is read.
 """
 
 import os
@@ -106,9 +107,24 @@ def test_a_killed_and_resumed_cli_fit_equals_the_unbroken_one(tmp_path):
 
 
 def test_load_fit_checkpoint_refuses_orbax_trees(tmp_path):
-    os.makedirs(tmp_path / "orbax")
-    for path in (tmp_path, tmp_path / "orbax"):
-        with pytest.raises(NotImplementedError, match="next slice"):
+    from harp_tpu_torch.utils.orbax_io import OrbaxCheckpointer
+
+    # harp_tpu's layout: orbax/{step}/ with Orbax's metadata and an OCDBT store.
+    jax_run = tmp_path / "jax_run"
+    os.makedirs(jax_run / "orbax" / "2" / "default" / "ocdbt.process_0")
+    (jax_run / "orbax" / "2" / "_CHECKPOINT_METADATA").write_text("{}")
+    (jax_run / "orbax" / "2" / "default" / "manifest.ocdbt").write_bytes(b"")
+    for path in (jax_run, jax_run / "orbax"):
+        with pytest.raises(ValueError, match="opt_states_from_numpy"):
             load_fit_checkpoint(str(path), device="cpu")
+    # The port's own tree: the latest step, from the run directory or orbax/.
+    params = {"pose": torch.ones(2, 3, requires_grad=True)}
+    with OrbaxCheckpointer(str(tmp_path / "run")) as ckpt:
+        for step in (1, 2):
+            ckpt.save(step, params, {"coarse": {}, "app": {}}, 0.5)
+    for path in (tmp_path / "run", tmp_path / "run" / "orbax"):
+        payload = load_fit_checkpoint(str(path), device="cpu")
+        assert payload["epoch"] == 2 and payload["plateau_scale"] == 0.5
+        assert torch.equal(payload["params"]["pose"], params["pose"].detach())
     with pytest.raises(FileNotFoundError):
         load_fit_checkpoint(str(tmp_path / "nothing"), device="cpu")
