@@ -15,7 +15,12 @@ that two train steps from one state give the same gradients and
 parameters bit for bit; time segment_sum at every call site of one
 stage-2 step; time the VGG step in float32 with TF32 off and on; run
 fit_sequence (stages 2 / 2 / 2) twice from one seed, which must give the
-same bits, and evaluate_sequence on it. Then the SMPL-X arm at reference
+same bits, and evaluate_sequence on it; the eval's turntables and light
+sweep on the fitted parameters (turntables: files, two evals the same
+bytes, views in groups the same bits as one at a time, card against CPU,
+K1 depth-only at their shape, timed against its bound: turntable_kernels);
+the Unscreen crop of eight 1920 x 1080 RGBA frames on the card against the
+CPU, its JPEGs decoded through data/dataset.py (crop). Then the SMPL-X arm at reference
 density (4078 render vertices, 8128 faces): the kernels at its shapes
 (arm_kernel, each; arm_kernels, all with the arm step's launches), its
 card-vs-CPU step, its 18-frame 448^2 step without VGG
@@ -296,6 +301,51 @@ def raster_work(name: str, args, cfg, blocks_per_sm: int) -> dict:
                 blocks_per_sm=blocks_per_sm)
 
 
+def raster_record(name: str, bins: dict, cfg, soft: bool, blocks_per_sm: int) -> dict:
+    """K1 (soft, or depth only) on one raster pass's bins, against its
+    plain version (ids equal, soft_sum within rtol 1e-5), timed (ms over
+    20 launches, plain_ms over 2 with face_chunk PLAIN_FACE_CHUNK), with
+    its work and bound from these inputs: the kernels line's record."""
+    import dataclasses
+
+    import torch
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+
+    plain_cfg = dataclasses.replace(cfg, face_chunk=PLAIN_FACE_CHUNK)
+    args = (bins["fv9"], bins["s_face"], bins["start_a"], bins["count_a"], bins["act_idx"])
+    hard, sid, ssum = rk.raster_ids(*args, cfg, soft)
+    hard_p, sid_p, ssum_p = rk.raster_ids_plain(*args, plain_cfg, soft)
+    torch.cuda.synchronize()
+    if not torch.equal(hard, hard_p):
+        fail(f"{name}: {int((hard != hard_p).sum())} hard ids differ from the plain version")
+    err = 0.0
+    if soft:
+        if not torch.equal(sid, sid_p):
+            fail(f"{name}: {int((sid != sid_p).sum())} soft ids differ")
+        if not torch.allclose(ssum, ssum_p, rtol=1e-5, atol=1e-6):
+            fail(f"{name}: soft_sum beyond rtol 1e-5: max {float((ssum - ssum_p).abs().max())}")
+        err = float((ssum - ssum_p).abs().max())
+    del hard_p, sid_p, ssum_p
+    ms = cuda_ms(lambda: rk.raster_ids(*args, cfg, soft), 20)
+    plain_ms = cuda_ms(lambda: rk.raster_ids_plain(*args, plain_cfg, soft), 2)
+    pairs = float(bins["count_a"].sum()) * cfg.tile * cfg.tile
+    outs = [hard] + ([sid, ssum] if soft else [])
+    work = raster_work(name, args, cfg, blocks_per_sm)
+    covered = float((hard >= 0).sum())
+    hits = float((sid >= 0).sum()) if soft else 0.0
+    ops = (work["box_tests"] * OPS_BOX
+           + work["pairs_kept"] * (OPS_COVER + (OPS_DIST if soft else 0))
+           + covered * OPS_DEPTH + hits * OPS_LOGSUM)
+    b_ms, b_by = bound_ms(nbytes(*args, *outs), ops)
+    bb_ms, bb_by = bound_ms(nbytes(*args, *outs), pairs * (OPS_SOFT if soft else OPS_HARD))
+    return dict(name=name, route="cuda", source="harp_tpu_torch/csrc/raster.cu",
+                replaces="harp_tpu/render/pallas/raster_kernel.py:65",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, bound_ms_binned=bb_ms,
+                bound_by_binned=bb_by, pairs=pairs, covered_pixels=covered,
+                soft_ids=hits if soft else None, **work)
+
+
 def phase_kernels(dev, arm: bool = False):
     """Each kernel on the card at the main path's shapes (the flagship scene
     at the step's 18 frames; with `arm`, the arm's) against its plain
@@ -322,40 +372,10 @@ def phase_kernels(dev, arm: bool = False):
     hits = 0.0
     for name, key, cfg_key, soft in (("raster_ids_soft", "cam_bins", "rcfg", True),
                                      ("raster_ids_depth", "light_bins", "rcfg_l", False)):
-        bins, cfg = inp[key], inp[cfg_key]
-        args = (bins["fv9"], bins["s_face"], bins["start_a"], bins["count_a"], bins["act_idx"])
-        hard, sid, ssum = rk.raster_ids(*args, cfg, soft)
-        hard_p, sid_p, ssum_p = rk.raster_ids_plain(*args, plain_cfg(cfg), soft)
-        torch.cuda.synchronize()
-        if not torch.equal(hard, hard_p):
-            fail(f"{name}: {int((hard != hard_p).sum())} hard ids differ from the plain version")
-        err = 0.0
+        rec = raster_record(name, inp[key], inp[cfg_key], soft, occupancy[name])
         if soft:
-            if not torch.equal(sid, sid_p):
-                fail(f"{name}: {int((sid != sid_p).sum())} soft ids differ")
-            if not torch.allclose(ssum, ssum_p, rtol=1e-5, atol=1e-6):
-                fail(f"{name}: soft_sum beyond rtol 1e-5: max {float((ssum - ssum_p).abs().max())}")
-            err = float((ssum - ssum_p).abs().max())
-        del hard_p, sid_p, ssum_p
-        ms = cuda_ms(lambda: rk.raster_ids(*args, cfg, soft), 20)
-        plain_ms = cuda_ms(lambda: rk.raster_ids_plain(*args, plain_cfg(cfg), soft), 2)
-        pairs = float(bins["count_a"].sum()) * cfg.tile * cfg.tile
-        outs = [hard] + ([sid, ssum] if soft else [])
-        work = raster_work(name, args, cfg, occupancy[name])
-        covered = float((hard >= 0).sum())
-        if soft:
-            hits = float((sid >= 0).sum())
-        ops = (work["box_tests"] * OPS_BOX
-               + work["pairs_kept"] * (OPS_COVER + (OPS_DIST if soft else 0))
-               + covered * OPS_DEPTH + (hits * OPS_LOGSUM if soft else 0.0))
-        b_ms, b_by = bound_ms(nbytes(*args, *outs), ops)
-        bb_ms, bb_by = bound_ms(nbytes(*args, *outs), pairs * (OPS_SOFT if soft else OPS_HARD))
-        records.append(dict(name=name, route="cuda", source="harp_tpu_torch/csrc/raster.cu",
-                            replaces="harp_tpu/render/pallas/raster_kernel.py:65",
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None, bound_ms_binned=bb_ms,
-                            bound_by_binned=bb_by, pairs=pairs, covered_pixels=covered,
-                            soft_ids=hits if soft else None, **work))
+            hits = rec["soft_ids"]
+        records.append(rec)
 
     cb, cfg = inp["cam_bins"], inp["rcfg"]
     corners = inp["assets"].sub_topology.corners
@@ -889,6 +909,295 @@ def phase_fit(dev, seq) -> dict:
             "launches": out["launches"]}
 
 
+TT_VIEWS = 36  # views per axis of the eval's turntables
+TT_LIGHTS = 40  # lights of its sweep
+TT_HELD = (0, TT_VIEWS - 1, TT_VIEWS, 2 * TT_VIEWS - 1)  # views 0, 35, h_0, h_35
+TT_SHARE = 0.005  # of a view's pixels whose codes may differ card vs CPU (the test's)
+
+
+def _turntable_cpu_views(params, assets, config, rcfg) -> dict:
+    """The views TT_HELD of frame 0's turntables (RGB and normal) and
+    lights 0 and TT_LIGHTS - 1 of its sweep on the CPU, by the plain
+    versions: viz's carry and renders, rendered only where held (the
+    test holds any grouping of views bit-equal)."""
+    import dataclasses
+
+    import torch
+    from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.utils import viz
+
+    cpu = torch.device("cpu")
+    rcfg = dataclasses.replace(rcfg, face_chunk=PLAIN_FACE_CHUNK)
+    p = {k: v.detach().to(cpu) for k, v in params.items()}
+    held = viz.turntable_verts(p, 0, assets, config, TT_VIEWS)[list(TT_HELD)]
+    with torch.no_grad():
+        v0, _ = pipeline.mesh_forward(p, torch.tensor([0]), assets, config)
+    lights = viz.sweep_lights(TT_LIGHTS)[[0, TT_LIGHTS - 1]]
+    out = {"rgb": viz.render_views(p, 0, held, assets, config, rcfg),
+           "normal": viz.render_views(p, 0, held, assets, config, rcfg, render_normal=True),
+           "light": viz.render_views(p, 0, v0.expand(2, -1, -1), assets, config, rcfg,
+                                     lights=lights)}
+    return {k: x.numpy() for k, x in out.items()}
+
+
+def phase_turntables(dev, seq, fit: dict) -> None:
+    """The eval's turntables on the fit phase's parameters at 448^2 (every
+    tile rasterized, 784 a view, as the eval does): evaluate_sequence with
+    turntables=True twice and without once. Each run's files (72 RGB, 72
+    normal, 72 combined and 40 light-sweep PNGs and four GIFs) are there,
+    and the two runs' are the same bytes; the overflow counters are 0 (a
+    group whose turned mesh overflows the tile capacity is rendered again
+    with a wider one: turntable_rerenders); the turntables' K1 depth-only
+    launches are the eval's without them plus one a group of eight views
+    (2 x 9 + 5 = 23) plus the rerenders, and nothing else of the step's
+    kernels; the RGB and normal turntables rendered eight views at a time
+    are the same bits as one view at a time; views 0, 35, h_0, h_35 and
+    lights 0 and 39 agree with the CPU's plain versions within the test's
+    bound (tests/test_torch_turntables.py: at most 0.5% of a view's pixels
+    with other codes). Then K1 depth-only at the turntable's shape (views
+    0-7, A = 784, a capacity that truncates nothing) against its plain
+    version, timed, with its bound."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from harp_tpu_torch.fit.driver import FitData
+    from harp_tpu_torch.fit.evaluate import evaluate_sequence
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+    from harp_tpu_torch.render.rasterizer import raster_compact
+    from harp_tpu_torch.render import camera as cam_mod
+    from harp_tpu_torch.utils import viz
+
+    config, params, assets = fit["config"], fit["params"], seq["assets"]
+    data = FitData(seq["images"], seq["masks"], seq["masks_er"])
+    _, aux = init_params(seq["init"], assets, config, device=dev)
+    subs = {"render_360": [f"{p}{i:04d}.png" for p in ("", "h_") for i in range(TT_VIEWS)],
+            "render_360_normal": [f"{p}{i:04d}.png" for p in ("", "h_") for i in range(TT_VIEWS)],
+            "render_360_combine": [f"{i:04d}.png" for i in range(2 * TT_VIEWS)],
+            "render_360_light": [f"{i:04d}.png" for i in range(TT_LIGHTS)]}
+    rec = {"phase": "turntables"}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for name, turn in (("plain", False), ("a", True), ("b", True)):
+            out_dir = os.path.join(tmp, name)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = evaluate_sequence(config, assets, data, params, aux, rcfg=seq["rcfg"],
+                                      out_dir=out_dir, turntables=turn, device=dev)
+            torch.cuda.synchronize()
+            runs.append((out_dir, stats, read_launches(), time.perf_counter() - t0))
+        (_, _, base, base_s), (a_dir, stats, launches, eval_s), (b_dir, *_) = runs
+        files = {}
+        for sub, names in subs.items():
+            got = sorted(os.listdir(os.path.join(a_dir, sub)))
+            if got != sorted(names + ["out.gif"]):
+                fail(f"turntables: {sub} holds {len(got)} files, not {len(names)} + out.gif")
+            differ = [n for n in got if open(os.path.join(a_dir, sub, n), "rb").read()
+                      != open(os.path.join(b_dir, sub, n), "rb").read()]
+            if differ:
+                fail(f"turntables: two evals wrote other bytes in {sub}: {differ[:5]}")
+            files[sub] = len(got)
+        counters = {k: v for k, v in stats.items() if k.startswith("turntable_")}
+        extra = {k: launches[k] - base[k] for k in launches}
+        want = dict.fromkeys(extra, 0)
+        want["raster_ids_depth"] = (2 * -(-2 * TT_VIEWS // 8) + -(-TT_LIGHTS // 8)
+                                    + counters.get("turntable_rerenders", 0))
+        extra_sum = extra.pop("segment_sum")
+        want.pop("segment_sum")
+        rec.update({"files": files, "counters": counters, "eval_turntables_s":
+                    stats["eval_turntables_s"], "eval_s": eval_s, "eval_without_s": base_s,
+                    "extra_launches": dict(extra, segment_sum=extra_sum)})
+        overflow = {k: v for k, v in counters.items() if k.endswith("_overflow")}
+        if len(overflow) != 3 or any(overflow.values()):
+            fail(f"turntables: overflow counters {counters}")
+        if extra != want:
+            fail(f"turntables: launches beyond the eval's {extra}, expected {want}")
+
+        read = {sub: np.stack([viz._read_rgb(os.path.join(a_dir, sub, subs[sub][i]))
+                               for i in idx])
+                for sub, idx in (("render_360", TT_HELD), ("render_360_normal", TT_HELD),
+                                 ("render_360_light", (0, TT_LIGHTS - 1)))}
+    args = (params, 0, assets, config, eval_rcfg(seq["rcfg"]))
+    for normal in (False, True):
+        one = viz.turntable_views(*args, normal, TT_VIEWS, chunk=1)
+        eight = viz.turntable_views(*args, normal, TT_VIEWS, chunk=8)
+        if not torch.equal(one, eight):
+            fail(f"turntables: {'normal' if normal else 'RGB'} views in groups of eight "
+                 f"differ from one at a time in {int((one != eight).any(-1).sum())} pixels")
+        held = eight[list(TT_HELD)].cpu().numpy()
+        written = read["render_360_normal" if normal else "render_360"]
+        if not np.array_equal(held, written):
+            fail("turntables: the written views are not turntable_views'")
+    t0 = time.perf_counter()
+    cpu = _turntable_cpu_views(params, assets, config, eval_rcfg(seq["rcfg"]))
+    rec["cpu_views_s"] = time.perf_counter() - t0
+    shares = {}
+    for key, sub in (("rgb", "render_360"), ("normal", "render_360_normal"),
+                     ("light", "render_360_light")):
+        shares[key] = [float((a != b).any(-1).mean()) for a, b in zip(read[sub], cpu[key])]
+    rec["card_vs_cpu_pixel_share"] = shares
+    if max(max(v) for v in shares.values()) > TT_SHARE:
+        fail(f"turntables: card vs CPU beyond {TT_SHARE} of a view's pixels: {shares}")
+
+    # K1 depth-only at the turntable's shape: views 0..7 of the RGB turntable,
+    # with a tile capacity that truncates nothing.
+    rcfg = dataclasses.replace(eval_rcfg(seq["rcfg"]), cap=len(assets.render_faces))
+    with torch.no_grad():
+        fids = torch.tensor([0], device=dev)
+        vb = viz.turntable_verts(params, 0, assets, config, TT_VIEWS)[:8]
+        R, T = pipeline.camera_for_frames(params, fids, config)
+        screen = cam_mod.screen_from_world(vb, R.expand(8, 3, 3), T.expand(8, 3),
+                                           config.focal_length, config.img_size)
+        bins = raster_compact(screen, assets.render_faces, rcfg, need_soft=False)["bins"]
+    k1 = raster_record("raster_ids_depth", bins, rcfg, False,
+                       rk.blocks_per_sm(rcfg.tile)["raster_ids_depth"])
+    k1.update(launches=extra["raster_ids_depth"], views=8, active_tiles=int(bins["act_idx"].shape[1]))
+    rec["k1_depth_max_faces_in_a_tile"] = int(bins["count_a"].max())
+    rec["k1_depth"] = k1
+    emit(rec)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"phase": "turntable_kernels", "kernels": [{k: k1[k] for k in keys}]})
+
+
+def eval_rcfg(rcfg):
+    """The eval's raster budget: every tile of the image."""
+    import dataclasses
+
+    return dataclasses.replace(rcfg, active_fraction=1.0)
+
+
+def png_all_paeth(arr: np.ndarray) -> bytes:
+    """(H, W, C) uint8 as a PNG whose every row has filter 4 (Paeth): the
+    slowest rows of decode_png, which undoes them byte by byte (the port's
+    writer uses filter 0, other writers choose per row)."""
+    import struct
+    import zlib
+
+    from harp_tpu_torch.utils.viz import _chunk
+
+    h, w, c = arr.shape
+    x = arr.reshape(h, w * c).astype(np.int64)
+    a = np.zeros_like(x)
+    a[:, c:] = x[:, :-c]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    cc = np.zeros_like(x)
+    cc[1:, c:] = x[:-1, :-c]
+    p = a + b - cc
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    rows = np.concatenate([np.full((h, 1), 4), (x - pred) & 0xFF], 1).astype(np.uint8)
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    return (b"\x89PNG\r\n\x1a\n"
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+CROP_FRAMES = 8  # unscreen frames of phase crop
+CROP_H, CROP_W = 1920, 1080  # a phone's portrait frame
+
+
+def phase_crop(dev, seq) -> None:
+    """The Unscreen crop on the card: eight 1920 x 1080 RGBA frames (the
+    synthetic sequence's 448^2 renders scaled to 1080^2 and centred, alpha
+    = the soft silhouette) and their originals (the same hand over a
+    gradient), written as PNG by the port's writer;
+    crop_unscreen_sequence on the card (resample in int64, nvJPEG at
+    quality 95), then crop_frame on the card and on the CPU: the same
+    bits before encoding; the JPEGs decoded through data/dataset.py
+    (load_sequences, with METRO pkls of the sequence's start) within a
+    mean of 0.015 of those arrays. Seconds per frame of the crop, and of
+    decode_png alone on a frame as the port writes it (filter 0) and with
+    every row Paeth-filtered (the slowest rows)."""
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+    from harp_tpu_torch.data.dataset import load_sequences, save_frame_pkl
+    from harp_tpu_torch.preprocess.crop import crop_frame, crop_unscreen_sequence
+    from harp_tpu_torch.utils import viz
+
+    n = CROP_FRAMES
+    rgb = F.interpolate(seq["images"][:n].permute(0, 3, 1, 2), size=(CROP_W, CROP_W),
+                        mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    alpha = F.interpolate(seq["masks"][:n, None], size=(CROP_W, CROP_W), mode="bilinear",
+                          align_corners=False)[:, 0]
+    top = (CROP_H - CROP_W) // 2
+    yy = torch.linspace(0, 1, CROP_H, device=dev)[:, None, None]
+    xx = torch.linspace(0, 1, CROP_W, device=dev)[None, :, None]
+    back = torch.cat([0.3 + 0.5 * yy * xx.new_ones(1, CROP_W, 1),
+                      0.6 - 0.4 * xx * yy.new_ones(CROP_H, 1, 1),
+                      0.2 + 0.3 * yy * xx], -1)
+    rec = {"phase": "crop", "frames": n, "size": [CROP_H, CROP_W]}
+    with tempfile.TemporaryDirectory() as tmp:
+        un, ori = os.path.join(tmp, "unscreen"), os.path.join(tmp, "ori")
+        os.makedirs(un)
+        os.makedirs(ori)
+        t0 = time.perf_counter()
+        for i in range(n):
+            a = torch.zeros(CROP_H, CROP_W, device=dev)
+            a[top:top + CROP_W] = alpha[i]
+            fg = back.clone()
+            fg[top:top + CROP_W] = rgb[i]
+            orig = fg * a[..., None] + back * (1 - a[..., None])
+            rgba = torch.cat([fg, a[..., None]], -1)
+            for img, d in ((rgba, un), (orig, ori)):
+                u8 = (img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+                with open(os.path.join(d, "%04d.png" % i), "wb") as f:
+                    f.write(viz.encode_png(u8))
+        rec["write_png_s"] = time.perf_counter() - t0
+        with open(os.path.join(un, "0000.png"), "rb") as f:
+            data = f.read()
+        paeth = png_all_paeth(viz.decode_png(data))
+        rec["decode_png_s"] = {}
+        for name, blob in (("filter_0", data), ("filter_4", paeth)):
+            t0 = time.perf_counter()
+            if not np.array_equal(viz.decode_png(blob), viz.decode_png(data)):
+                fail(f"crop: decode_png of the {name} frame differs")
+            rec["decode_png_s"][name] = time.perf_counter() - t0
+        root = os.path.join(tmp, "seq")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count = crop_unscreen_sequence(un, os.path.join(root, "1"), ori_img_dir=ori, device=dev)
+        torch.cuda.synchronize()
+        rec["crop_s_per_frame"] = (time.perf_counter() - t0) / n
+        if count != n:
+            fail(f"crop: {count} frames cropped of {n}")
+        card, host, bad = [], [], []
+        t0 = time.perf_counter()
+        for i in range(n):
+            paths = (os.path.join(un, "%04d.png" % i), os.path.join(ori, "%04d.png" % i))
+            c = crop_frame(*paths, device=dev)
+            h = crop_frame(*paths, device="cpu")
+            if not all(torch.equal(x.cpu(), y) for x, y in zip(c, h)):
+                bad.append(i)
+            card.append(c)
+            host.append(h)
+        rec["card_and_cpu_crop_s"] = time.perf_counter() - t0
+        if bad:
+            fail(f"crop: frames {bad} differ between the card and the CPU before encoding")
+        init = {k: np.asarray(v)[:n] if np.ndim(v) and np.shape(v)[0] == B_STEP else np.asarray(v)
+                for k, v in seq["init"].items()}
+        init["verts"] = np.zeros((n, 1, 3), np.float32)
+        os.makedirs(os.path.join(root, "1", "metro_mano_smooth"))
+        for i in range(n):
+            save_frame_pkl(os.path.join(root, "1", "metro_mano_smooth", "%04d_mano.pkl" % i),
+                           init, i)
+        _, images, masks, _ = load_sequences(root, root, ["1"], device=dev)
+        want_img = torch.stack([c[0] for c in card]).float() / 255.0
+        want_mask = torch.stack([c[1] for c in card]).float() / 255.0
+        err = {"image_mean_abs": float((images - want_img).abs().mean()),
+               "mask_mean_abs": float((masks - want_mask).abs().mean())}
+        rec.update(decode_err=err, mask_mean=float(want_mask.mean()))
+        emit(rec)
+        if max(err.values()) >= 0.015 or not 0.02 < rec["mask_mean"] < 0.9:
+            fail(f"crop: decoded frames beyond 0.015 ({err}) or a mask of mean {rec['mask_mean']}")
+
+
 BATCH_S = 4  # sequences of the batch fit (seeds 0 to 3)
 # Its per-tile face capacity: seed 1's hand puts more than the flagship's
 # 448 faces into one camera tile and 3 x 448 into one light tile (one
@@ -1290,7 +1599,7 @@ def phase_arm_fit(dev) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--synthetic", "--use-arm", "--img-size", str(IMG), "--n-frames", str(B_STEP),
                 "--texture-size", str(TEX), "--stages", "2", "2", "2", "--epochs", "6",
-                "--out", tmp]
+                "--no-turntables", "--out", tmp]
         reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):  # the CLI prints its summary
@@ -1469,7 +1778,7 @@ def phase_real_data(dev) -> dict:
 
         base = ["--metro-output-dir", tmp, "--image-dir", tmp, "--train-list", "1",
                 "--mano-pkl", "MANO_RIGHT.pkl", "--img-size", str(IMG), "--texture-size",
-                str(TEX), "--stages", "2", "2", "2", "--epochs", "7"]
+                str(TEX), "--stages", "2", "2", "2", "--epochs", "7", "--no-turntables"]
         saved = []
         for run in range(2):
             out = f"run{run}"
@@ -1716,6 +2025,8 @@ def main() -> int:
     launches, _ = phase_step(dev, seq, vgg_dtype="bfloat16")
     phase_vgg_f32(dev, seq)
     fit = phase_fit(dev, seq)
+    phase_turntables(dev, seq, fit)
+    phase_crop(dev, seq)
     # Several sequences and ranks, and the async checkpointer.
     phase_batch_fit(dev, seq)
     phase_mesh_fit(dev, seq, fit)

@@ -122,3 +122,22 @@ def opt_states_from_numpy(opt_states: dict, params: dict, config, device) -> dic
             }
         out[g] = opt.state_dict()
     return out
+
+
+def unet_params_from_numpy(params: dict) -> dict:
+    """harp_tpu's init_unet pytree ({"enc": [...], "bott", "dec": [...],
+    "head"}, HWIO kernels) -> a state dict of models.unet.UNet (OIHW)."""
+    def conv(prefix, p):
+        w = np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1)
+        return {f"{prefix}.weight": torch.tensor(w),
+                f"{prefix}.bias": torch.tensor(np.asarray(p["b"], np.float32))}
+
+    state = {}
+    for group in ("enc", "dec"):
+        for i, block in enumerate(params[group]):
+            for c in ("c1", "c2"):
+                state.update(conv(f"{group}.{i}.{c}", block[c]))
+    for c in ("c1", "c2"):
+        state.update(conv(f"bott.{c}", params["bott"][c]))
+    state.update(conv("head", params["head"]))
+    return state

@@ -5,12 +5,14 @@ shadow per config) and the normal render; IoU, L1, the LPIPS-style VGG
 proxy and MS-SSIM per frame; GT | pred | normal | overlay composites
 quantised to uint8 on the device. Then the composites as PNGs, the texture
 maps, the posed frame-0 mesh as an OBJ, the optional Procrustes vertex
-error against GT meshes, and eval_results[_test].txt.
+error against GT meshes, eval_results[_test].txt, and with `turntables`
+frame 0's turntables, their side-by-side combination and its light sweep
+(utils/viz.py: render_360, concat_image_dirs, render_360_light).
 
 Every tile is rasterized (harp_tpu's eval runs its full-image raster),
 and the eval refuses to report metrics when any raster pass truncated a
 tile or a face: the overflow counters, summed over every pass, must all
-be 0. Turntables wait for render_360.
+be 0.
 """
 
 from __future__ import annotations
@@ -75,10 +77,13 @@ def evaluate_sequence(config, assets, data: FitData, params: dict, aux: dict,
     "LPIPS_proxy" (or "LPIPS" with pretrained VGG weights), "MS_SSIM",
     the overflow counters, timings}. The metrics run in float32 with TF32
     off; frames go in groups of the largest divisor of n <= render_batch.
-    extras: the model family's statics (HTML's texture basis). Runs on
-    CUDA unless device is given."""
-    if turntables:
-        raise NotImplementedError("turntables wait for render_360, not ported yet")
+    extras: the model family's statics (HTML's texture basis). With
+    turntables, frame 0's RGB and normal turntables (72 views each), their
+    combination and the 40-light sweep are written under out_dir, in
+    groups of render_batch views, and the result gains eval_turntables_s,
+    their overflow counters (turntable_*_overflow, all 0: each group's
+    tile capacity grows until nothing is truncated) and turntable_rerenders
+    (the renders that grew it). Runs on CUDA unless device is given."""
     dev = resolve_device(device)
     rcfg = dataclasses.replace(rcfg or config.raster_config(), active_fraction=1.0)
     out_dir = out_dir or config.base_output_dir
@@ -132,6 +137,20 @@ def evaluate_sequence(config, assets, data: FitData, params: dict, aux: dict,
         os.makedirs(out_dir, exist_ok=True)
         np.savetxt(os.path.join(out_dir, "eval_vert_mm" + test_name + ".txt"), vert_errs)
 
+    walls = {}
+    if turntables:
+        t1 = time.perf_counter()
+        tt: dict = {}
+        kw = dict(chunk=render_batch, counters=tt, extras=extras)
+        rgb_dir = viz.render_360(params, 0, assets, config, rcfg, out_dir, **kw)
+        nrm_dir = viz.render_360(params, 0, assets, config, rcfg, out_dir, render_normal=True,
+                                 **kw)
+        viz.concat_image_dirs(rgb_dir, nrm_dir, os.path.join(out_dir, "render_360_combine"),
+                              device=dev)
+        viz.render_360_light(params, 0, assets, config, rcfg, out_dir, **kw)
+        walls = {**{"turntable_" + k: v for k, v in tt.items()},
+                 "eval_turntables_s": time.perf_counter() - t1}
+
     if save_images:
         t1 = time.perf_counter()
         comps = torch.cat(comps).numpy()
@@ -148,4 +167,5 @@ def evaluate_sequence(config, assets, data: FitData, params: dict, aux: dict,
             for k, v in final.items():
                 f.write(" %s: %.5f\n" % (k, v))
         final["eval_composites_s"] = time.perf_counter() - t1
+    final.update(walls)
     return final

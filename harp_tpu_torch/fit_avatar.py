@@ -34,8 +34,13 @@ through the async checkpointer (utils/orbax_io.py) under --out/orbax/.
 
 Writes config.yaml, metrics.jsonl, the image logs every 10 epochs,
 saved_params.pkl, checkpoint.pt (or orbax/), the eval composites and maps,
-eval_results.txt and fit_summary.json under --out, and prints the summary.
-Epoch scans and turntables (render_360) are not ported: their flags raise.
+eval_results.txt, frame 0's turntables (render_360/, render_360_normal/,
+render_360_combine/, render_360_light/: PNG frames and out.gif; on by
+default as in harp_tpu, --no-turntables skips them) and fit_summary.json
+under --out, and prints the summary. --debug-nans runs the fit under
+torch's anomaly mode, which checks each backward function's outputs for
+NaN (harp_tpu's jax_debug_nans checks every operation). Epoch scans
+(--epoch-scan > 1) are not ported: the flag raises.
 """
 
 from __future__ import annotations
@@ -44,9 +49,8 @@ import argparse
 import json
 import os
 
-# What each refused flag waits for.
-_LATER = {"--epoch-scan > 1": "ROADMAP Queue 1 item 2, the step as one CUDA graph",
-          "--turntables": "ROADMAP Queue 1 item 6, render_360 and the turntables"}
+# What --epoch-scan > 1 waits for.
+_EPOCH_SCAN_LATER = "ROADMAP Queue 1 item 2, the step as one CUDA graph"
 
 
 def parse_args(argv=None):
@@ -103,14 +107,15 @@ def parse_args(argv=None):
                         "N gloo ranks with --device cpu); 0: one process")
     p.add_argument("--checkpoint-backend", default="pickle", choices=["pickle", "orbax"],
                    help="checkpoint.pt, or the async checkpointer's orbax/ tree")
-    # harp_tpu flags whose parts are not ported: refused unless left off.
+    p.add_argument("--turntables", action=argparse.BooleanOptionalAction, default=True,
+                   help="render frame 0's turntables and light sweep after the eval")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fit under torch.autograd's anomaly mode with its NaN check")
+    # A harp_tpu flag whose part is not ported: refused unless left off.
     p.add_argument("--epoch-scan", type=int, default=0)
-    p.add_argument("--turntables", action="store_true")
     args = p.parse_args(argv)
-    refused = [name for name, on in (
-        ("--epoch-scan > 1", args.epoch_scan > 1), ("--turntables", args.turntables)) if on]
-    if refused:
-        p.error("not ported yet: " + "; ".join(f"{k} (comes with {_LATER[k]})" for k in refused))
+    if args.epoch_scan > 1:
+        p.error(f"not ported yet: --epoch-scan > 1 (comes with {_EPOCH_SCAN_LATER})")
     if args.synthetic:
         files = [name for name, on in (
             ("--metro-output-dir", args.metro_output_dir), ("--image-dir", args.image_dir),
@@ -262,7 +267,8 @@ def _run(args, mesh=None) -> dict | None:
         val_kwargs = dict(val_data=val[1], val_params={
             k: torch.tensor(v, device=dev) for k, v in val[0].items()})
 
-    with Timer(dev) as t_fit:
+    with Timer(dev) as t_fit, torch.autograd.set_detect_anomaly(args.debug_nans,
+                                                                check_nan=True):
         params, history = fit_sequence(config, assets, data, params, aux, rcfg=rcfg,
                                        out_dir=config.base_output_dir, image_log_every=10,
                                        resume=resume, extras=extras, device=dev, mesh=mesh,
@@ -272,7 +278,7 @@ def _run(args, mesh=None) -> dict | None:
     save_result(params, config.base_output_dir, test=config.known_appearance)
     with Timer(dev) as t_eval:
         stats = evaluate_sequence(config, assets, data, params, aux, rcfg=rcfg, device=dev,
-                                  extras=extras)
+                                  extras=extras, turntables=args.turntables)
         if val is not None:
             # The validation sequences: the fitted shared appearance with
             # their own preprocessing pose and camera.

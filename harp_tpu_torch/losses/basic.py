@@ -5,6 +5,24 @@ from __future__ import annotations
 import torch
 
 from harp_tpu_torch.ops.mesh import MeshTopology, edge_lengths
+from harp_tpu_torch.ops.numerics import jnp_abs
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean |a - b|, with jnp.abs's derivative at 0."""
+    return jnp_abs(a - b).mean()
+
+
+def silhouette_loss(alpha_pred: torch.Tensor, mask_true: torch.Tensor) -> torch.Tensor:
+    """L1 between the soft silhouette and the GT mask."""
+    return l1_loss(mask_true, alpha_pred)
+
+
+def photometric_loss(img_pred: torch.Tensor, img_true: torch.Tensor,
+                     mask_eroded: torch.Tensor) -> torch.Tensor:
+    """L1 of the images (B, H, W, 3) under the eroded GT silhouette (B, H, W)."""
+    m = mask_eroded[..., None]
+    return l1_loss(img_true * m, img_pred * m)
 
 
 def kps_anchor_loss(gt_joints_mm: torch.Tensor, pred_joints_mm: torch.Tensor,

@@ -16,6 +16,9 @@ once: the fit has no per-step loader. There is no fallback between the
 two: a missing library raises an error that names it, and a file that is
 missing, is no JPEG or has another size than the first raises with its
 path.
+
+A third library, gif_lzw.cpp (g++, no dependency), is the LZW loop of
+the port's GIF writer (utils/viz.py save_gif): gif_lzw().
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -36,32 +40,44 @@ BUILD_DIR = _HERE.parent / "_build"
 HOST_SOURCE = _HERE / "frameloader.cpp"
 HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 HOST_LIBS = ["-ljpeg"]
+GIF_SOURCE = _HERE / "gif_lzw.cpp"
+_BUILD_LOCK = threading.Lock()
 _STATUS = {1: "cannot be opened", 2: "is not a decodable JPEG", 3: "has another size",
            4: "cannot be written"}
+
+
+def _build_host(source: Path, libs: list, what: str, needs: str) -> ctypes.CDLL:
+    """The shared library of a host C++ source, built by g++ ($CXX) into
+    BUILD_DIR first if needed, under a name hashing source and flags.
+    Raises, naming `needs`, when the compiler or a library is absent."""
+    h = hashlib.sha256(source.read_bytes() + " ".join(HOST_FLAGS + libs).encode()).hexdigest()[:12]
+    path = BUILD_DIR / f"lib{source.stem}_{h}.so"
+    with _BUILD_LOCK:  # one build at a time in this process (the GIF writer's threads)
+        if not path.exists():
+            _compile_host(source, libs, what, needs, path)
+    return ctypes.CDLL(str(path))
+
+
+def _compile_host(source: Path, libs: list, what: str, needs: str, path: Path) -> None:
+    cxx = os.environ.get("CXX", "g++")
+    if shutil.which(cxx) is None:
+        raise RuntimeError(f"{what} needs a C++ compiler ({cxx}){needs}; no compiler is found")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *HOST_FLAGS, str(source), *libs, "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} needs a C++ compiler{needs}; building {source.name} "
+                           "failed:\n" + proc.stdout + proc.stderr)
+    os.replace(tmp, path)
 
 
 @functools.cache
 def _host() -> ctypes.CDLL:
     """The libjpeg library, built first if needed. Raises, naming libjpeg,
     when the compiler or the library is absent."""
-    h = hashlib.sha256(HOST_SOURCE.read_bytes()
-                       + " ".join(HOST_FLAGS + HOST_LIBS).encode()).hexdigest()[:12]
-    path = BUILD_DIR / f"libframeloader_{h}.so"
-    if not path.exists():
-        cxx = os.environ.get("CXX", "g++")
-        if shutil.which(cxx) is None:
-            raise RuntimeError(f"the host frame decoder needs a C++ compiler ({cxx}) "
-                               "and libjpeg; no compiler is found")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([cxx, *HOST_FLAGS, str(HOST_SOURCE), *HOST_LIBS, "-o", str(tmp)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("the host frame decoder needs libjpeg (jpeglib.h and "
-                               f"libjpeg.so); building {HOST_SOURCE.name} failed:\n"
-                               + proc.stdout + proc.stderr)
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+    lib = _build_host(HOST_SOURCE, HOST_LIBS, "the host frame decoder",
+                      " and libjpeg (jpeglib.h and libjpeg.so)")
     lib.hf_probe.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
                              ctypes.POINTER(ctypes.c_int)]
     lib.hf_probe.restype = ctypes.c_int
@@ -209,3 +225,23 @@ def encode_jpeg(frame, path, quality: int = 95) -> None:
     st = _host().hf_encode(a.ctypes.data, a.shape[0], a.shape[1], c, quality, path.encode())
     if st:
         raise OSError(f"frame {path} {_STATUS[st]}")
+
+
+@functools.cache
+def _gif() -> ctypes.CDLL:
+    lib = _build_host(GIF_SOURCE, [], "the GIF writer's LZW encoder", "")
+    lib.hg_lzw.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long]
+    lib.hg_lzw.restype = ctypes.c_long
+    return lib
+
+
+def gif_lzw(indices: np.ndarray) -> bytes:
+    """GIF's LZW code stream (minimum code size 8, least significant bit
+    first, not cut into sub-blocks) of uint8 palette indices."""
+    idx = np.ascontiguousarray(indices, np.uint8).reshape(-1)
+    cap = 2 * idx.size + 64  # 12 bits a pixel, clear codes and the end code
+    out = np.empty(cap, np.uint8)
+    n = _gif().hg_lzw(idx.ctypes.data, idx.size, out.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError("gif_lzw: the output buffer is too short")
+    return out[:n].tobytes()

@@ -185,3 +185,20 @@ def edge_lengths(verts: torch.Tensor, topology: MeshTopology) -> torch.Tensor:
     """(..., E) edge lengths."""
     e = _index(topology.edges, verts.device)
     return safe_norm(verts[..., e[:, 0], :] - verts[..., e[:, 1], :], dim=-1)
+
+
+def taubin_smoothing(verts: torch.Tensor, topology: MeshTopology, lam: float = 0.53,
+                     mu: float = -0.53, num_iter: int = 10) -> torch.Tensor:
+    """Taubin lambda / mu smoothing (pytorch3d's defaults): num_iter pairs of
+    uniform-Laplacian steps, + lam then + mu. verts (..., V, 3)."""
+    nbr = _index(topology.neighbors, verts.device)
+    mask = torch.as_tensor(topology.neighbor_mask, dtype=verts.dtype, device=verts.device)
+    deg = mask.sum(-1, keepdim=True).clamp(min=1.0)
+
+    def lap(v):
+        return (v[..., nbr, :] * mask[..., None]).sum(-2) / deg - v
+
+    for _ in range(num_iter):
+        verts = verts + lam * lap(verts)
+        verts = verts + mu * lap(verts)
+    return verts

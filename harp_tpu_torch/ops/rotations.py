@@ -55,3 +55,12 @@ def flat_pose_map(rotmats: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(3, dtype=rotmats.dtype, device=rotmats.device)
     delta = rotmats - eye
     return delta.reshape(delta.shape[:-3] + (-1,))
+
+
+def project_to_rotation(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> the closest rotation in Frobenius norm,
+    U diag(1, 1, det(U V^T)) V^T from the SVD."""
+    u, _, vt = torch.linalg.svd(m, full_matrices=False)
+    det = torch.linalg.det(u @ vt)
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    return (u * d[..., None, :]) @ vt

@@ -1,6 +1,11 @@
-"""Preprocessing of METRO's output (harp_tpu/preprocess without crop.py,
-whose PIL resize and paste are not ported yet)."""
+"""Preprocessing (harp_tpu/preprocess): the Unscreen crop of raw frames,
+and the fits to METRO's output and its smoothers."""
 
+from harp_tpu_torch.preprocess.crop import (
+    crop_frame,
+    crop_unscreen_sequence,
+    resize_center_crop,
+)
 from harp_tpu_torch.preprocess.fit import (
     fit_arm_to_vertices,
     fit_mano_to_vertices,

@@ -57,7 +57,7 @@ from harp_tpu_torch.models.zoo import load_hand_model
 IMG, TEX = 32, 64
 FIT_FLAGS = ["--device", "cpu", "--img-size", str(IMG), "--texture-size", str(TEX),
              "--stages", "1", "1", "1", "--epochs", "3", "--batch-size", "2", "--no-vgg",
-             "--raster-cap", "4096"]
+             "--raster-cap", "4096", "--no-turntables"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -242,10 +242,14 @@ def test_known_appearance_keeps_the_fitted_appearance(root, run):
 
 def test_cli_refuses_later_slices_and_missing_data(root, tmp_path, capsys):
     for flags, said in ((["--epoch-scan", "10"], "ROADMAP Queue 1 item 2"),
-                        (["--turntables"], "ROADMAP Queue 1 item 6")):
+                        (["--epoch-scan", "2"], "ROADMAP Queue 1 item 2")):
         with pytest.raises(SystemExit):
             fit_avatar.parse_args(_argv(root, tmp_path) + flags)
         assert said in capsys.readouterr().err
+    # The turntables are ported: on by default, as in harp_tpu.
+    assert fit_avatar.parse_args([a for a in _argv(root, tmp_path)
+                                  if a != "--no-turntables"]).turntables
+    assert fit_avatar.parse_args(_argv(root, tmp_path) + ["--turntables"]).turntables
     with pytest.raises(SystemExit):
         fit_avatar.parse_args(["--synthetic", "--mano-pkl", "MANO_RIGHT.pkl"])
     with pytest.raises(SystemExit):

@@ -569,7 +569,7 @@ def test_real_data_fit_with_logs_repeats_bit_equal(cuda, tmp_path, monkeypatch):
     argv = ["--metro-output-dir", ".", "--image-dir", ".", "--train-list", "1", "--val-list",
             "2", "--mano-pkl", "MANO_RIGHT.pkl", "--img-size", "64", "--texture-size", "64",
             "--stages", "1", "1", "0", "--epochs", "2", "--batch-size", "2",
-            "--raster-cap", "4096"]
+            "--raster-cap", "4096", "--no-turntables"]
     saved = []
     for run in ("a", "b"):
         main(argv + ["--out", run])
@@ -643,3 +643,42 @@ def test_orbax_checkpointer_snapshots_cuda_state(cuda, tmp_path):
         assert torch.equal(got["params"][k], v), k
         assert not torch.equal(params[k].detach(), v), k
     assert torch.equal(got["opt_states"]["coarse"]["state"][1]["exp_avg"], want_m.cpu())
+
+
+def test_crop_on_the_card_is_the_cpus_bit_for_bit(cuda, tmp_path):
+    """Pillow's resample and paste carried over in int64: the same bits on
+    the card (down- and up-scaling, portrait and landscape, L and RGB)."""
+    from harp_tpu_torch.preprocess import crop as C
+    from harp_tpu_torch.utils import viz
+
+    rng = np.random.RandomState(0)
+    for h, w in ((190, 97), (61, 150), (20, 16)):
+        rgba = rng.randint(0, 256, (h, w, 4)).astype(np.uint8)
+        path = str(tmp_path / f"{h}_{w}.png")
+        with open(path, "wb") as f:
+            f.write(viz.encode_png(rgba))
+        for res in (16, 48):
+            card = C.crop_frame(path, None, res, device=cuda)
+            cpu = C.crop_frame(path, None, res, device="cpu")
+            assert card[0].is_cuda
+            for a, b in zip(card, cpu):
+                assert torch.equal(a.cpu(), b)
+
+
+def test_turntable_on_the_card_in_groups_is_one_view_at_a_time(cuda):
+    from harp_tpu_torch.assets import build_synthetic_assets
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+    from harp_tpu_torch.utils import viz
+
+    assets = build_synthetic_assets(uv_size=32, density="light")
+    config = HarpConfig(img_size=64, focal_length=2000.0 * 64 / 448, texture_size=32)
+    rcfg = RasterConfig(image_size=64, tile=16, cap=1024, span_tiles=4)
+    _, _, _, gt, _ = make_synthetic_sequence(assets, config, rcfg, n_frames=1, device=cuda)
+    for normal in (False, True):
+        one = viz.turntable_views(gt, 0, assets, config, rcfg, normal, 4, chunk=1)
+        assert one.is_cuda and one.shape == (8, 64, 64, 3)
+        assert torch.equal(viz.turntable_views(gt, 0, assets, config, rcfg, normal, 4,
+                                               chunk=8), one)
+    one = viz.light_sweep_views(gt, 0, assets, config, rcfg, num=4, chunk=1)
+    assert torch.equal(viz.light_sweep_views(gt, 0, assets, config, rcfg, num=4, chunk=4), one)

@@ -295,6 +295,13 @@ def test_cli_runs_a_tiny_synthetic_fit_on_cpu(tmp_path):
     assert 0.0 < summary["Silhouette IoU"] <= 1.0 and summary["device"] == "cpu"
     for name in ("config.yaml", "metrics.jsonl", "saved_params.pkl", "eval_results.txt"):
         assert os.path.exists(os.path.join(out, name)), name
+    # The turntables are on by default, as in harp_tpu's CLI.
+    views = [f"{p}{i:04d}.png" for p in ("", "h_") for i in range(36)]
+    for sub, names in (("render_360", views), ("render_360_normal", views),
+                       ("render_360_combine", [f"{i:04d}.png" for i in range(72)]),
+                       ("render_360_light", [f"{i:04d}.png" for i in range(40)])):
+        assert sorted(os.listdir(os.path.join(out, sub))) == sorted(names + ["out.gif"]), sub
+    assert stats["eval_turntables_s"] > 0 and stats["turntable_bin_overflow"] == 0
 
 
 def test_cli_runs_a_tiny_synthetic_arm_fit_on_cpu(tmp_path):
@@ -306,7 +313,7 @@ def test_cli_runs_a_tiny_synthetic_arm_fit_on_cpu(tmp_path):
     stats = main(["--synthetic", "--use-arm", "--device", "cpu", "--n-frames", "2",
                   "--img-size", "32", "--texture-size", "64", "--density", "light",
                   "--stages", "1", "1", "1", "--epochs", "3", "--raster-cap", "2048",
-                  "--no-vgg", "--out", out])
+                  "--no-vgg", "--no-turntables", "--out", out])
     with open(os.path.join(out, "fit_summary.json")) as f:
         summary = json.load(f)
     assert summary["final_loss"] == stats["final_loss"] and np.isfinite(stats["final_loss"])
@@ -319,10 +326,31 @@ def test_cli_runs_a_tiny_synthetic_arm_fit_on_cpu(tmp_path):
         assert os.path.exists(os.path.join(out, name)), name
 
 
+def test_cli_debug_nans_fits_under_anomaly_mode(monkeypatch, tmp_path):
+    """--debug-nans: the fit runs under torch's anomaly mode with its NaN
+    check (off without the flag)."""
+    from harp_tpu_torch.fit import driver
+    from harp_tpu_torch.fit_avatar import main
+
+    seen = []
+
+    def fit_sequence(*args, **kwargs):
+        seen.append((torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()))
+        raise KeyboardInterrupt  # stop before the fit
+
+    monkeypatch.setattr(driver, "fit_sequence", fit_sequence)
+    argv = ["--synthetic", "--device", "cpu", "--n-frames", "2", "--img-size", "32",
+            "--texture-size", "16", "--density", "light", "--out", str(tmp_path)]
+    for flags in (["--debug-nans"], []):
+        with pytest.raises(KeyboardInterrupt):
+            main(argv + flags)
+    assert seen == [(True, True), (False, True)] and not torch.is_anomaly_enabled()
+
+
 def test_cli_refuses_what_is_not_ported_and_needs_a_device(monkeypatch, tmp_path):
     from harp_tpu_torch.fit_avatar import main
 
-    for flags in (["--use-arm", "--smplx-npz", "SMPLX_NEUTRAL.npz"], ["--turntables"], []):
+    for flags in (["--use-arm", "--smplx-npz", "SMPLX_NEUTRAL.npz"], ["--epoch-scan", "2"], []):
         with pytest.raises(SystemExit):
             main((["--synthetic"] if flags else []) + flags + ["--device", "cpu"])
     # --mesh-devices beyond the visible CUDA devices raises: no fewer ranks,

@@ -1,5 +1,7 @@
 """harp_tpu_torch stands alone: importing every one of its modules
-(parallel/, fit/batch.py and utils/orbax_io.py among them) loads neither
+(parallel/, fit/batch.py, utils/orbax_io.py, preprocess/crop.py and the
+leaf modules losses/smooth.py, models/unet.py, utils/opt_utils.py and
+utils/fh_utils.py among them) loads neither
 jax, orbax nor tensorstore nor anything of harp_tpu, and its entry points
 refuse to guess a device when no CUDA card is present."""
 
@@ -23,7 +25,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "harp_tpu", "orbax", "tensorstore"))
 new = {"harp_tpu_torch.parallel.sharding", "harp_tpu_torch.parallel.halo",
        "harp_tpu_torch.parallel.launch", "harp_tpu_torch.fit.batch",
-       "harp_tpu_torch.utils.orbax_io"}
+       "harp_tpu_torch.utils.orbax_io", "harp_tpu_torch.preprocess.crop",
+       "harp_tpu_torch.losses.smooth", "harp_tpu_torch.models.unet",
+       "harp_tpu_torch.utils.opt_utils", "harp_tpu_torch.utils.fh_utils"}
 print(len(names) if new <= set(names) else -1, bad)
 """
 

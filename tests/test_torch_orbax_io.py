@@ -182,7 +182,8 @@ def test_killed_and_resumed_fit_under_orbax_is_the_same_bits(scene, tmp_path):
 
 CLI = ["--synthetic", "--device", "cpu", "--n-frames", "2", "--img-size", "32",
        "--texture-size", "32", "--density", "light", "--stages", "1", "2", "2",
-       "--epochs", "5", "--raster-cap", "2048", "--no-vgg", "--checkpoint-backend", "orbax"]
+       "--epochs", "5", "--raster-cap", "2048", "--no-vgg",
+       "--no-turntables", "--checkpoint-backend", "orbax"]
 
 
 def test_cli_orbax_backend_and_resume_orbax(tmp_path):

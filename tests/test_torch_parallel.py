@@ -207,7 +207,8 @@ def test_fit_sequence_mesh_rejects_an_uneven_batch_and_a_foreign_mesh(scene):
 
 CLI = ["--synthetic", "--device", "cpu", "--n-frames", "2", "--img-size", "32",
        "--texture-size", "32", "--density", "light", "--stages", "1", "1", "1",
-       "--epochs", "3", "--raster-cap", "2048", "--no-vgg", "--batch-size", "2"]
+       "--epochs", "3", "--raster-cap", "2048", "--no-vgg", "--batch-size", "2",
+       "--no-turntables"]
 
 
 def test_cli_mesh_devices_on_cpu_ranks(tmp_path):

@@ -33,7 +33,8 @@ from harp_tpu_torch.fit.resume import (
 
 CLI = ["--synthetic", "--device", "cpu", "--n-frames", "2", "--img-size", "32",
        "--texture-size", "32", "--density", "light", "--stages", "1", "2", "2",
-       "--epochs", "5", "--raster-cap", "2048", "--no-vgg"]
+       "--epochs", "5", "--raster-cap", "2048", "--no-vgg",
+       "--no-turntables"]
 
 
 @pytest.fixture(autouse=True, scope="module")
