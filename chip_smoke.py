@@ -41,6 +41,14 @@ fit_sequence on a one-rank NCCL mesh, the same bits as without a mesh, and
 on two gloo ranks sharing the card, against the card's unsharded fit
 (mesh_fit); a fit killed after its orbax checkpoint and resumed, the same
 bits as the unbroken fit, with the checkpointer's retention (orbax_resume).
+Then the epoch scan: fit_sequence(epoch_scan=2) as CUDA graphs of the step,
+twice, eagerly under anomaly mode, on a one-rank NCCL mesh (all the same
+bits) and as the per-step loop (harp_tpu's scan-against-loop tolerance),
+with per stage the replayed and eager step times and a profiled replayed
+segment's kernels by name (epoch_scan); over two NCCL ranks on two cards
+where there are two (nccl_scan); the protocol through the CLI at its
+defaults, held to harp_tpu's recorded quality (protocol); graft_entry's
+forward on the card against the CPU (graft_entry).
 
     python3 chip_smoke.py
 
@@ -1790,8 +1798,10 @@ def phase_real_data(dev) -> dict:
                 continue
             losses = [r["loss"] for r in epochs]
             counters = {k: max(r.get(k, 0.0) for r in epochs) for k in OVERFLOW_KEYS}
-            logs = [n for n in ("sil_0000.png", "0000.png", "val_0000.png", "uv_0000.png",
-                                "normal_0000.png") if os.path.exists(os.path.join(out, n))]
+            # Epoch 0's logs, written at the end of its segment, epochs 0 and 1
+            # (the CLI's --epoch-scan 10 within stage 1's two epochs).
+            logs = [n for n in ("sil_0001.png", "0001.png", "val_0001.png", "uv_0001.png",
+                                "normal_0001.png") if os.path.exists(os.path.join(out, n))]
             rec.update({"cli_wall_s": wall, "epoch_losses": losses, "overflow_max": counters,
                         "launches": launches, "logs": logs, **{k: stats.get(k) for k in (
                             "Silhouette IoU", "L1", "MS_SSIM", "LPIPS_proxy",
@@ -1917,6 +1927,345 @@ def phase_preprocess(dev, real: dict) -> None:
              f"of a leaf's largest entry: {worst}")
 
 
+SCAN_STAGES = (3, 3, 3)  # epochs of phase epoch_scan's stages (one step each)
+SCAN_TIMED = 12  # steps of each stage timed eagerly and replayed
+SCAN_PROFILED = 3  # replayed steps of each stage's profiled segment
+# Kernels by the names the profiler gives them (csrc/), and their counters.
+KERNEL_NAMES = {"raster_ids_soft": "raster_ids_kernel<true", "raster_ids_depth":
+                "raster_ids_kernel<false", "coverage_grad": "coverage_grad_kernel",
+                "pcf_scatter": "pcf_scatter_kernel", "segment_sum": "chunk_sums_kernel"}
+# harp_tpu's scan-against-loop tolerance (tests/test_fit_e2e.py): epoch
+# loss rtol 5e-5 inside the first segment, 1e-2 after; parameters rtol
+# 2e-3, atol epochs * 2 * lr + 2e-6.
+SCAN_LOSS_RTOL = (5e-5, 1e-2)
+
+
+def _metric_lines(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "loss" in r]
+
+
+@contextlib.contextmanager
+def _plain_adams():
+    """fit_sequence's two Adams as they were before the epoch scan: plain
+    (not capturable), the coarse lr a float set from the host."""
+    import torch
+    from harp_tpu_torch.fit import driver
+    from harp_tpu_torch.fit.optimizer import group_param_names
+
+    def build(params, config):
+        lrs = {"coarse": config.lr_pose, "app": config.lr_app}
+        return {g: torch.optim.Adam([params[k] for k in names], lr=lrs[g])
+                for g, names in group_param_names(config).items()}
+
+    original = driver.build_optimizers
+    driver.build_optimizers = build
+    try:
+        yield
+    finally:
+        driver.build_optimizers = original
+
+
+def phase_epoch_scan(dev, seq) -> None:
+    """harp_tpu's epoch scan as CUDA graphs of the step (fit_sequence(
+    epoch_scan=2)) on the flagship (18 frames of 448^2, one step an epoch,
+    reference density, self-shadow, VGG bf16 from the cached GT), stages
+    3 / 3 / 3: each stage a segment of two epochs (warm-up, capture,
+    replay) and one of one (replay). Four fits from one seed: the graph
+    twice (the same bits), the same segments eagerly on the card under
+    anomaly mode (--debug-nans' path: "graph": false; the same bits as the
+    graph), the per-step loop (within harp_tpu's scan-against-loop
+    tolerance), and the graph on a one-rank NCCL mesh (the same bits).
+    Every overflow counter 0. Then per stage, on a fresh state: the step
+    timed eagerly and replayed (SCAN_TIMED steps each, CUDA-synchronised
+    host clock), and one replayed segment of SCAN_PROFILED steps under
+    torch.profiler, whose kernels by name must be the per-step launches
+    times the steps, with its device-busy ms. And the per-step loop with
+    the plain Adams of before (not capturable): how far the capturable
+    Adams moved the loop's bits (numbers only)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from harp_tpu_torch.fit.driver import (
+        OVERFLOW_KEYS, FitData, _key_stream_np, fit_sequence, make_epoch_scan, make_train_step,
+    )
+    from harp_tpu_torch.fit.optimizer import DevicePlateau, PlateauState
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.parallel import make_mesh
+    from harp_tpu_torch.render import pipeline
+
+    base, vgg, aux_gt, _ = vgg_setup(seq, dev, "bfloat16")
+    config = dataclasses.replace(base, training_stage=SCAN_STAGES, total_epoch=sum(SCAN_STAGES))
+    data = FitData(seq["images"], seq["masks"], seq["masks_er"])
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, scan, anomaly, mesh in (("graph", 2, False, False), ("graph2", 2, False, False),
+                                          ("eager", 2, True, False), ("loop", 0, False, False),
+                                          ("nccl1", 2, False, True),
+                                          ("loop_plain_adam", 0, False, False)):
+            params, aux = init_params(seq["init"], seq["assets"], config, device=dev)
+            out_dir = os.path.join(tmp, name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.autograd.set_detect_anomaly(anomaly), contextlib.ExitStack() as stack:
+                m = stack.enter_context(make_mesh(1, device=dev)) if mesh else None
+                if name == "loop_plain_adam":  # the Adams before they were capturable
+                    stack.enter_context(_plain_adams())
+                params, history = fit_sequence(config, seq["assets"], data, params, aux,
+                                               rcfg=seq["rcfg"], vgg=vgg, out_dir=out_dir,
+                                               device=dev, epoch_scan=scan, mesh=m)
+            torch.cuda.synchronize()
+            runs[name] = {"params": {k: p.detach().clone() for k, p in params.items()},
+                          "losses": [h["loss"] for h in history],
+                          "fit_s": time.perf_counter() - t0,
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "lines": _metric_lines(out_dir)}
+    g = runs["graph"]
+    seg = [r for r in g["lines"] if "segment_s" in r]
+    capture_s = [r["capture_s"] for r in g["lines"] if "capture_s" in r]
+    counters = {k: max(r.get(k, 0.0) for r in g["lines"]) for k in OVERFLOW_KEYS}
+    differ = {name: _differ(runs[name]["params"], g["params"])
+              for name in ("graph2", "eager", "nccl1")}
+    lr = max(config.lr_pose, config.lr_app)
+    loop_err = {k: float((g["params"][k] - p).abs().max())
+                for k, p in runs["loop"]["params"].items()}
+    loop_loss_rel = [abs(a - b) / abs(b) for a, b in zip(g["losses"], runs["loop"]["losses"])]
+    # What the capturable Adams moved in the per-step loop's bits.
+    plain = runs["loop_plain_adam"]
+    adam_moved = {"param_max_abs": {k: float((runs["loop"]["params"][k] - p).abs().max())
+                                    for k, p in plain["params"].items()},
+                  "loss_rel": [abs(a - b) / abs(b) for a, b in
+                               zip(runs["loop"]["losses"], plain["losses"])]}
+
+    # Per stage, on a fresh state: the step eager and replayed, and a
+    # profiled replayed segment.
+    stages = {}
+    keys = _key_stream_np(1, 2 * SCAN_TIMED + 2 + SCAN_PROFILED)
+    rng = np.random.RandomState(1)
+    for label, flags, n_of in (("stage1", (True, False), (0, 1, 0)),
+                               ("stage2", (True, True), (1, 0, 0)),
+                               ("stage3", (False, True), (0, 0, 1))):
+        params, _ = init_params(seq["init"], seq["assets"], config, device=dev)
+        step = make_train_step(seq["assets"], config, seq["rcfg"], params, device=dev, vgg=vgg)
+        with torch.no_grad():
+            ref = pipeline.mesh_forward(params, torch.zeros(1, dtype=torch.long, device=dev),
+                                        seq["assets"], config)[0][0]
+        plateau = DevicePlateau.of(PlateauState(), dev)
+
+        def segment(n, k0):
+            return (np.stack([rng.permutation(B_STEP)[None] for _ in range(n)]),
+                    keys[k0:k0 + n, None])
+
+        ms = {}
+        for mode, use_graph in (("eager", False), ("graph", True)):
+            scan = make_epoch_scan(step, data, aux_gt, ref, plateau, coarse_on=flags[0],
+                                   app_on=flags[1], epochs=SCAN_TIMED, steps=1, batch=B_STEP,
+                                   graph=use_graph)
+            k0 = 0 if mode == "eager" else SCAN_TIMED + 1
+            scan.run(*segment(1 if mode == "eager" else 2, k0), config.plateau_patience,
+                     config.plateau_factor)  # warm-up (and capture)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = scan.run(*segment(SCAN_TIMED, k0), config.plateau_patience,
+                           config.plateau_factor)
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t0) * 1e3 / SCAN_TIMED
+            if not torch.isfinite(out).all():
+                fail(f"epoch_scan: {label} {mode} steps gave non-finite sums")
+            if use_graph:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    scan.run(*segment(SCAN_PROFILED, 2 * SCAN_TIMED + 2),
+                             config.plateau_patience, config.plateau_factor)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+                busy = sum(r[1] for r in rows)
+                counts = {name: sum(c for key, _, c in rows if pat in key)
+                          for name, pat in KERNEL_NAMES.items()}
+                per_step = expected_launches(*n_of)
+                want = {k: v * SCAN_PROFILED for k, v in per_step.items()}
+                stages[label] = {"eager_step_ms": ms["eager"], "replayed_step_ms": ms["graph"],
+                                 "capture_s": scan.capture_s,
+                                 "profiled_steps": SCAN_PROFILED, "profiled_wall_ms": wall_ms,
+                                 "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+                                 "kernel_counts": counts, "expected_counts": want,
+                                 "top": [{"name": k[:80], "self_device_ms": t, "count": c}
+                                         for k, t, c in sorted(rows, key=lambda r: -r[1])[:8]]}
+                if counts != want:
+                    fail(f"epoch_scan: {label}: profiled kernels of {SCAN_PROFILED} replayed "
+                         f"steps {counts}, expected {want}")
+            scan.close()
+        del step, params
+    emit({"phase": "epoch_scan", "frames": B_STEP, "stages": list(SCAN_STAGES),
+          "epoch_scan": 2, "vgg_compute_dtype": "bfloat16",
+          "fit_s": {k: r["fit_s"] for k, r in runs.items()},
+          "peak_mem_gib": {k: r["peak_mem_gib"] for k, r in runs.items()},
+          "epoch_losses": g["losses"], "loop_epoch_losses": runs["loop"]["losses"],
+          "loop_loss_rel": loop_loss_rel, "loop_param_max_abs": loop_err,
+          "loop_capturable_vs_plain_adam": adam_moved,
+          "graph_segments": [r["graph"] for r in seg],
+          "eager_segments": [r.get("graph") for r in runs["eager"]["lines"] if "segment_s" in r],
+          "capture_s": capture_s, "segment_s": [r["segment_s"] for r in seg],
+          "differ_from_graph": differ, "overflow_max": counters, "stages_timed": stages})
+    if any(differ.values()):
+        fail(f"epoch_scan: fits that must be the graph's bits differ: {differ}")
+    if [r["graph"] for r in seg] != [True] * 6 or len(capture_s) != 3:
+        fail(f"epoch_scan: segments {[r['graph'] for r in seg]}, captures {capture_s}")
+    if [r.get("graph") for r in runs["eager"]["lines"] if "segment_s" in r] != [False] * 6:
+        fail("epoch_scan: the anomaly-mode fit's segments are not logged graph: false")
+    if any(counters.values()):
+        fail(f"epoch_scan: overflow counters {counters}")
+    losses = g["losses"]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"epoch_scan: epoch losses {losses}")
+    for e, rel in enumerate(loop_loss_rel):
+        if rel > SCAN_LOSS_RTOL[e >= 2]:
+            fail(f"epoch_scan: epoch {e} loss {rel} from the per-step loop's")
+    for k, p in runs["loop"]["params"].items():
+        excess = float(((g["params"][k] - p).abs() - 2e-3 * p.abs()).max())
+        if excess > config.total_epoch * 2 * lr + 2e-6:
+            fail(f"epoch_scan: parameter {k} beyond harp_tpu's scan-against-loop bound")
+
+
+def phase_nccl_scan(dev, seq) -> None:
+    """fit_sequence(mesh=, epoch_scan=2) over two NCCL ranks, one card each
+    (parallel.launch): each rank's graph holds the gradient all-reduce. 9
+    of the 18 frames a rank, no VGG, stages 2 / 2 / 2; every segment a
+    graph; the loss within rtol 1e-4 of the one-card scan fit and the
+    parameters within harp_tpu's frame-split bound (as mesh_fit). Needs
+    two cards: with one it says so and checks nothing."""
+    import dataclasses
+
+    import torch
+    from harp_tpu_torch.fit.driver import FitData, fit_sequence
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.parallel import workers
+    from harp_tpu_torch.parallel.launch import launch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "nccl_scan", "skipped": f"{cards} card: an all-reduce inside a graph "
+                                                "needs two"})
+        return
+    config = dataclasses.replace(seq["config"], w_vgg=0.0, training_stage=(2, 2, 2),
+                                 total_epoch=6)
+    params, aux = init_params(seq["init"], seq["assets"], config, device=dev)
+    want, want_hist = fit_sequence(config, seq["assets"],
+                                   FitData(seq["images"], seq["masks"], seq["masks_er"]),
+                                   params, aux, rcfg=seq["rcfg"], device=dev, epoch_scan=2)
+    scene = {"assets": seq["assets"], "config": config, "rcfg": seq["rcfg"],
+             "init": seq["init"], "frames": tuple(t.cpu().numpy() for t in (
+                 seq["images"], seq["masks"], seq["masks_er"]))}
+    t0 = time.perf_counter()
+    out = launch(workers.fit_sequence_on_mesh, 2, scene, 1, 2, devices=["cuda:0", "cuda:1"],
+                 backend="nccl", timeout=600)["runs"][0]
+    launch_s = time.perf_counter() - t0
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(out["history"], want_hist)]
+    lr = max(config.lr_pose, config.lr_app)
+    bound = config.total_epoch * 3 * lr + 2e-6
+    param_err = {k: float(np.max(np.abs(out["params"][k] - v.detach().cpu().numpy())
+                                 - 2e-4 * np.abs(v.detach().cpu().numpy())))
+                 for k, v in want.items()}
+    emit({"phase": "nccl_scan", "cards": cards, "ranks": 2, "launch_s": launch_s,
+          "graph_segments": [r["graph"] for r in out["segments"]],
+          "capture_s": [r.get("capture_s") for r in out["segments"]],
+          "epoch_losses": [h["loss"] for h in out["history"]],
+          "one_card_epoch_losses": [h["loss"] for h in want_hist], "loss_rel_err": loss_rel,
+          "param_excess_over_rtol": param_err, "bound": bound})
+    if [r["graph"] for r in out["segments"]] != [True] * 3:
+        fail(f"nccl_scan: segments {out['segments']}")
+    over = {k: e for k, e in param_err.items() if e > bound}
+    if len(loss_rel) != 6 or max(loss_rel) > 1e-4 or over:
+        fail(f"nccl_scan: loss rel {loss_rel}, parameters beyond {bound}: {over}")
+
+
+# harp_tpu's recorded protocol (RESULTS.md:350-352) and PERF.md section 2's limits.
+PROTOCOL_REF = {"Silhouette IoU": (0.9386, 0.01), "L1": (0.0051, 0.002), "MS_SSIM": (0.9790, 0.01)}
+
+
+def phase_protocol(dev) -> None:
+    """The protocol as a user runs it: python -m harp_tpu_torch.fit_avatar
+    --synthetic --n-frames 36 with every other flag at its default (301
+    epochs, 448^2, B18, shadow, VGG bf16 with the cached GT, --epoch-scan
+    10, the turntables), in this process. The fit and eval walls, the
+    turntables' seconds, IoU / L1 / MS-SSIM within PERF.md's limits of
+    harp_tpu's recorded protocol, every segment a graph, every overflow
+    counter 0."""
+    import tempfile
+
+    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--n-frames", "36", "--out", tmp]
+        stats, wall, _, epochs = _run_cli(argv)
+    seg = [r for r in epochs if "segment_s" in r]
+    counters = {k: max(r.get(k, 0.0) for r in epochs) for k in OVERFLOW_KEYS}
+    gaps = {k: stats[k] - ref for k, (ref, _) in PROTOCOL_REF.items()}
+    emit({"phase": "protocol", "argv": argv, "cli_wall_s": wall,
+          **{k: stats.get(k) for k in ("fit_wall_s", "eval_wall_s", "eval_turntables_s",
+                                       "Silhouette IoU", "L1", "MS_SSIM", "LPIPS_proxy",
+                                       "final_loss")},
+          "harp_tpu_recorded": {k: ref for k, (ref, _) in PROTOCOL_REF.items()}, "gaps": gaps,
+          "epochs": len(epochs), "segments": len(seg),
+          "graph_segments": sum(bool(r["graph"]) for r in seg),
+          "capture_s": [r["capture_s"] for r in epochs if "capture_s" in r],
+          "segment_s_median": float(np.median([r["segment_s"] for r in seg])),
+          "lr_scale_last": epochs[-1]["lr_scale"], "overflow_max": counters})
+    if len(epochs) != 301 or not all(r["graph"] is True for r in seg):
+        fail(f"protocol: {len(epochs)} epochs, segments as graphs {[r['graph'] for r in seg]}")
+    if any(counters.values()):
+        fail(f"protocol: overflow counters {counters}")
+    for k, (ref, tol) in PROTOCOL_REF.items():
+        if not abs(stats[k] - ref) <= tol:
+            fail(f"protocol: {k} {stats[k]} is beyond {tol} of harp_tpu's {ref}")
+
+
+def phase_graft_entry(dev) -> None:
+    """graft_entry.entry()'s forward (the flagship hand at 448^2, 2 frames:
+    mesh forward, soft silhouette, shadowed RGB) on the card against the
+    same forward on the CPU (the kernels' plain versions): joints rtol
+    1e-5; alpha and RGB within 1e-3 on all but 0.5% of the pixels (the
+    shadow's sharpness-1000 sigmoid amplifies float32 rounding where a
+    pixel's depth meets the light's), and within 0.05 everywhere."""
+    import torch
+    from harp_tpu_torch.graft_entry import entry
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        forward, args = entry(d)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            res = forward(*args)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        out[d.type] = ([t.cpu() for t in res], time.perf_counter() - t0)
+    (card, card_s), (cpu, cpu_s) = out["cuda"], out["cpu"]
+    rec = {"phase": "graft_entry", "shapes": [list(t.shape) for t in card], "card_s": card_s,
+           "cpu_s": cpu_s}
+    for name, a, b in zip(("alpha", "rgb", "joints"), card, cpu):
+        diff = (a - b).abs()
+        rec[name] = {"max_abs": float(diff.max()), "share_over_1e-3": float((diff > 1e-3)
+                                                                           .float().mean())}
+    emit(rec)
+    if [list(t.shape) for t in card] != [[2, IMG, IMG], [2, IMG, IMG, 3], [2, 21, 3]]:
+        fail(f"graft_entry: shapes {rec['shapes']}")
+    if not torch.allclose(card[2], cpu[2], rtol=1e-5, atol=1e-4):
+        fail(f"graft_entry: joints {rec['joints']}")
+    for name in ("alpha", "rgb"):
+        if rec[name]["share_over_1e-3"] > 0.005 or rec[name]["max_abs"] > 0.05:
+            fail(f"graft_entry: {name} card vs CPU {rec[name]}")
+    if not 0.01 < float(card[0].mean()) < 0.5:
+        fail(f"graft_entry: silhouette coverage {float(card[0].mean())}")
+
+
 def phase_segment_sum_shapes(run_step, per_step: int) -> None:
     """segment_sum at every call site of one stage-2 step: each call's
     (M, C, R, longest run of one key) with its device time (torch.profiler,
@@ -2031,7 +2380,12 @@ def main() -> int:
     phase_batch_fit(dev, seq)
     phase_mesh_fit(dev, seq, fit)
     phase_orbax_resume(dev, seq, fit)
+    # The epoch scan: segments of epochs as CUDA graphs of the step.
+    phase_epoch_scan(dev, seq)
+    phase_nccl_scan(dev, seq)
     del seq, fit
+    phase_protocol(dev)
+    phase_graft_entry(dev)
     # The SMPL-X arm at reference density (harp_tpu's value_arm_b18), then
     # HTML and NIMBLE; each path's launches read from its own run.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

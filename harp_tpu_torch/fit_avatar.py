@@ -37,10 +37,13 @@ saved_params.pkl, checkpoint.pt (or orbax/), the eval composites and maps,
 eval_results.txt, frame 0's turntables (render_360/, render_360_normal/,
 render_360_combine/, render_360_light/: PNG frames and out.gif; on by
 default as in harp_tpu, --no-turntables skips them) and fit_summary.json
-under --out, and prints the summary. --debug-nans runs the fit under
-torch's anomaly mode, which checks each backward function's outputs for
-NaN (harp_tpu's jax_debug_nans checks every operation). Epoch scans
-(--epoch-scan > 1) are not ported: the flag raises.
+under --out, and prints the summary. --epoch-scan N (10, harp_tpu's
+default) runs the fit in segments of N epochs, each step a replay of a
+CUDA graph of the train step (fit_sequence(epoch_scan=N)); 0 or 1 runs the
+per-step loop. --debug-nans runs the fit under torch's anomaly mode, which
+checks each backward function's outputs for NaN (harp_tpu's
+jax_debug_nans checks every operation); its checks read the card from the
+host, so the segments then run eagerly (metrics.jsonl: "graph": false).
 """
 
 from __future__ import annotations
@@ -48,9 +51,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-
-# What --epoch-scan > 1 waits for.
-_EPOCH_SCAN_LATER = "ROADMAP Queue 1 item 2, the step as one CUDA graph"
 
 
 def parse_args(argv=None):
@@ -110,12 +110,14 @@ def parse_args(argv=None):
     p.add_argument("--turntables", action=argparse.BooleanOptionalAction, default=True,
                    help="render frame 0's turntables and light sweep after the eval")
     p.add_argument("--debug-nans", action="store_true",
-                   help="fit under torch.autograd's anomaly mode with its NaN check")
-    # A harp_tpu flag whose part is not ported: refused unless left off.
-    p.add_argument("--epoch-scan", type=int, default=0)
+                   help="fit under torch.autograd's anomaly mode with its NaN check (the "
+                        "epoch scan's segments then run eagerly: the checks read the card "
+                        "from the host, which a CUDA graph cannot)")
+    p.add_argument("--epoch-scan", type=int, default=10,
+                   help="epochs a segment: the steps of each run as replays of a CUDA graph "
+                        "of the train step, logs and checkpoints at the segment's end; 0 or "
+                        "1: the per-step loop")
     args = p.parse_args(argv)
-    if args.epoch_scan > 1:
-        p.error(f"not ported yet: --epoch-scan > 1 (comes with {_EPOCH_SCAN_LATER})")
     if args.synthetic:
         files = [name for name, on in (
             ("--metro-output-dir", args.metro_output_dir), ("--image-dir", args.image_dir),
@@ -272,7 +274,7 @@ def _run(args, mesh=None) -> dict | None:
         params, history = fit_sequence(config, assets, data, params, aux, rcfg=rcfg,
                                        out_dir=config.base_output_dir, image_log_every=10,
                                        resume=resume, extras=extras, device=dev, mesh=mesh,
-                                       **val_kwargs)
+                                       epoch_scan=args.epoch_scan, **val_kwargs)
     if not lead:
         return None
     save_result(params, config.base_output_dir, test=config.known_appearance)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.ops.numerics import jnp_abs, safe_norm
 from harp_tpu_torch.ops.segment import SegmentOrder, gather_rows
 
@@ -50,7 +51,7 @@ def albedo_reg(texture, generator=None, std: float = 1.0, uv_mask=None,
 
 def close_to_z_reg(normal_map: torch.Tensor) -> torch.Tensor:
     """Mean ||n - (0, 0, 1)||_2 / 3."""
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=normal_map.dtype, device=normal_map.device)
+    z = constant((0.0, 0.0, 1.0), normal_map.device, normal_map.dtype)
     return (safe_norm(normal_map - z, dim=-1) / 3.0).mean()
 
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from harp_tpu_torch.device import constant
+
 
 def kinematic_levels(parents: np.ndarray) -> list[np.ndarray]:
     """Joint indices grouped by depth in the kinematic tree; level 0 is [0]."""
@@ -29,16 +31,16 @@ def forward_kinematics(rotmats: torch.Tensor, joints_rest: torch.Tensor,
     if levels is None:
         levels = kinematic_levels(parents)
     dev = joints_rest.device
-    par = torch.as_tensor(np.maximum(parents, 0), device=dev)
-    has_parent = torch.as_tensor(parents >= 0, device=dev)[None, :, None]
+    par = constant(np.maximum(parents, 0), dev)
+    has_parent = constant(parents >= 0, dev)[None, :, None]
     t_local = joints_rest - torch.where(
         has_parent, joints_rest[:, par], torch.zeros_like(joints_rest))
 
     R_g = rotmats
     t_g = t_local
     for lvl in levels[1:]:
-        li = torch.as_tensor(lvl, device=dev)
-        pi = torch.as_tensor(parents[lvl], device=dev)
+        li = constant(lvl, dev)
+        pi = constant(parents[lvl], dev)
         Rp = R_g[:, pi]
         tp = t_g[:, pi]
         Rl = rotmats[:, li]

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.ops.rotations import axis_angle_to_matrix, flat_pose_map
 from harp_tpu_torch.models.lbs import (
     kinematic_levels,
@@ -69,7 +70,7 @@ def mano_forward(model: ManoModel, pose_coeffs: torch.Tensor,
     K = model.num_joints
 
     def const(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return constant(a, dev, np.float32)
 
     hand_coeffs = pose_coeffs[:, 3:3 + model.ncomps]
     if model.use_pca:
@@ -92,9 +93,9 @@ def mano_forward(model: ManoModel, pose_coeffs: torch.Tensor,
     R_g, t_g = forward_kinematics(rotmats, joints_rest, model.parents, levels)
     verts = linear_blend_skinning(R_g, t_g, joints_rest, const(model.weights), v_posed)
 
-    tips = verts[:, torch.as_tensor(np.asarray(model.tips_idx), device=dev)]
+    tips = verts[:, constant(model.tips_idx, dev, np.int64)]
     joints = torch.cat([t_g, tips], dim=1)
-    joints = joints[:, torch.as_tensor(np.asarray(model.joint_reorder), device=dev)]
+    joints = joints[:, constant(model.joint_reorder, dev, np.int64)]
 
     verts = (verts + trans[:, None, :]) * 1000.0
     joints = (joints + trans[:, None, :]) * 1000.0

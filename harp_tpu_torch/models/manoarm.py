@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.models.lbs import forward_kinematics, kinematic_levels, linear_blend_skinning
 from harp_tpu_torch.ops.rotations import axis_angle_to_matrix, flat_pose_map
 from harp_tpu_torch.ops.segment import TableOrder, gather_table
@@ -109,7 +110,7 @@ def manoarm_forward(model: ManoArmModel, betas: torch.Tensor, global_orient: tor
     K = NUM_JOINTS
 
     def const(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return constant(a, dev, np.float32)
 
     if body_pose is None:
         body_pose = torch.zeros(B, NUM_BODY_JOINTS * 3, dtype=f32, device=dev)
@@ -142,7 +143,7 @@ def manoarm_forward(model: ManoArmModel, betas: torch.Tensor, global_orient: tor
     verts = verts + transl.to(f32)[:, None]
     joints_ext = joints_ext + transl.to(f32)[:, None]
 
-    arm_verts = verts[:, torch.as_tensor(np.asarray(model.arm_vert_idx, np.int64), device=dev)]
+    arm_verts = verts[:, constant(model.arm_vert_idx, dev, np.int64)]
     out_joints = gather_table(joints_ext, model.joint_order)
     return arm_verts, out_joints
 

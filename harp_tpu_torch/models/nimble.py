@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.models.lbs import forward_kinematics, kinematic_levels, linear_blend_skinning
 from harp_tpu_torch.ops.rotations import axis_angle_to_matrix
 from harp_tpu_torch.ops.segment import TableOrder, gather_table
@@ -95,7 +96,7 @@ def nimble_forward(model: NimbleModel, pose_coeffs: torch.Tensor, betas: torch.T
     K = model.num_joints
 
     def const(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return constant(a, dev, np.float32)
 
     coeffs = pose_coeffs[:, 3:3 + model.ncomps]
     body_pose = coeffs @ const(model.pose_basis[: model.ncomps]) + const(model.pose_mean)
@@ -141,8 +142,7 @@ def nimble_to_mano(model: NimbleModel, skin_verts: torch.Tensor) -> torch.Tensor
         raise ValueError("model has no MANO regression")
     Vm, nk = model.mano_vreg_idx.shape
     rows = gather_table(skin_verts, model.vreg_order).reshape(-1, Vm, nk, 3)
-    w = torch.as_tensor(np.asarray(model.mano_vreg_w), dtype=skin_verts.dtype,
-                        device=skin_verts.device)
+    w = constant(model.mano_vreg_w, skin_verts.device, skin_verts.dtype)
     return torch.einsum("bvkc,vk->bvc", rows, w)
 
 
@@ -151,12 +151,12 @@ def mano_protocol_joints(model: NimbleModel, mano_verts: torch.Tensor) -> torch.
     the regressed MANO surface: the joint convention of the keypoint loss
     for every model family."""
     dev = mano_verts.device
-    J = torch.einsum("kv,bvc->bkc", torch.as_tensor(np.asarray(model.mano_J_regressor),
-                                                    dtype=mano_verts.dtype, device=dev),
+    J = torch.einsum("kv,bvc->bkc",
+                     constant(model.mano_J_regressor, dev, mano_verts.dtype),
                      mano_verts)
-    tips = mano_verts[:, torch.as_tensor(np.asarray(model.mano_tips_idx, np.int64), device=dev)]
+    tips = mano_verts[:, constant(model.mano_tips_idx, dev, np.int64)]
     joints = torch.cat([J, tips], 1)
-    return joints[:, torch.as_tensor(np.asarray(model.mano_joint_reorder, np.int64), device=dev)]
+    return joints[:, constant(model.mano_joint_reorder, dev, np.int64)]
 
 
 def load_nimble_model(pm_dict_pkl: str, vreg_pkl: str | None = None) -> NimbleModel:

@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.models.lbs import forward_kinematics, kinematic_levels, linear_blend_skinning
 from harp_tpu_torch.ops.rotations import axis_angle_to_matrix, flat_pose_map
 from harp_tpu_torch.ops.segment import TableOrder, gather_table
@@ -97,10 +98,10 @@ def smplx_arm_forward(model: SmplxArmModel, betas: torch.Tensor,
     K = NUM_JOINTS
 
     def const(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return constant(a, dev, np.float32)
 
     def index(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+        return constant(a, dev, np.int64)
 
     # body_pose is zero but for the right wrist, dims 60:63 (a new tensor:
     # no in-place write into one autograd still needs).

@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.ops.numerics import safe_norm, safe_normalize
 from harp_tpu_torch.ops.segment import TableOrder, sum_rows
 
@@ -124,7 +125,7 @@ def build_subdivision(topology: MeshTopology) -> Subdivision:
 
 
 def _index(a: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.int64), device=device)
+    return constant(a, device, np.int64)
 
 
 def apply_subdivision(sub: Subdivision, verts: torch.Tensor) -> torch.Tensor:
@@ -163,8 +164,7 @@ def laplacian_smoothing_loss(verts: torch.Tensor, topology: MeshTopology) -> tor
     """Uniform-weight Laplacian magnitude, mean over verts and batch
     (pytorch3d mesh_laplacian_smoothing, method='uniform')."""
     nbr = _index(topology.neighbors, verts.device)
-    mask = torch.as_tensor(topology.neighbor_mask, dtype=verts.dtype,
-                           device=verts.device)
+    mask = constant(topology.neighbor_mask, verts.device, verts.dtype)
     gathered = verts[..., nbr, :]  # (..., V, D, 3)
     deg = mask.sum(-1, keepdim=True).clamp(min=1.0)
     mean_nbr = (gathered * mask[..., None]).sum(-2) / deg
@@ -192,7 +192,7 @@ def taubin_smoothing(verts: torch.Tensor, topology: MeshTopology, lam: float = 0
     """Taubin lambda / mu smoothing (pytorch3d's defaults): num_iter pairs of
     uniform-Laplacian steps, + lam then + mu. verts (..., V, 3)."""
     nbr = _index(topology.neighbors, verts.device)
-    mask = torch.as_tensor(topology.neighbor_mask, dtype=verts.dtype, device=verts.device)
+    mask = constant(topology.neighbor_mask, verts.device, verts.dtype)
     deg = mask.sum(-1, keepdim=True).clamp(min=1.0)
 
     def lap(v):

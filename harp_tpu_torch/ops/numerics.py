@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from harp_tpu_torch.device import constant
+
 
 def safe_norm(x: torch.Tensor, dim=-1, keepdim: bool = False,
               eps: float = 1e-24) -> torch.Tensor:
@@ -29,4 +31,5 @@ def jnp_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """x clipped to [lo, hi] with jnp.clip's derivative: 1/2 where x equals
     a bound exactly (torch.clamp: 1). torch.maximum / torch.minimum split
     the gradient of a tie in half, as jnp.maximum / jnp.minimum do."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, constant(lo, x.device, x.dtype)),
+                         constant(hi, x.device, x.dtype))

@@ -224,17 +224,25 @@ def frame_rows(mesh: Mesh, n: int, axis: str = FRAME_AXIS) -> slice:
 
 
 def broadcast_from_rank0(mesh: Mesh, tensors, axis: str = FRAME_AXIS) -> None:
-    """Overwrite each tensor with the first rank's of `axis`, in place."""
+    """Overwrite each tensor with the first rank's of `axis`, in place. A
+    tensor that is not contiguous (a parameter made from a broadcast array)
+    travels as a contiguous copy: NCCL refuses it as it is."""
     if mesh.axis_size(axis) == 1:
         return
     src, group = mesh.lines[axis][0], mesh.groups[axis]
     with torch.no_grad():
         for t in tensors:
-            dist.broadcast(t.data, src, group=group)
+            buf = t.data if t.is_contiguous() else t.data.contiguous()
+            dist.broadcast(buf, src, group=group)
+            if buf is not t.data:
+                t.data.copy_(buf)
 
 
 def all_reduce_sum(mesh: Mesh, t: torch.Tensor, axis: str = FRAME_AXIS) -> torch.Tensor:
-    """t summed over the ranks of `axis`, in place (returned)."""
+    """t summed over the ranks of `axis`, in place (returned). t must be
+    contiguous: the collectives read and write its storage as one run."""
+    if not t.is_contiguous():
+        raise ValueError("all_reduce_sum sums a contiguous tensor in place")
     if mesh.axis_size(axis) > 1:
         dist.all_reduce(t, group=mesh.groups[axis])
     return t

@@ -55,11 +55,16 @@ def _numpy(params: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
-def fit_sequence_on_mesh(mesh: Mesh, scene: dict, runs: int = 1) -> dict:
-    """fit_sequence(mesh=mesh) of the scene, `runs` times from its initial
-    parameters. Returns {"runs": [{"params", "history"}] (rank 0's; the
-    ranks hold the same parameters), "launches": [each rank's kernel
-    launches over the runs]}."""
+def fit_sequence_on_mesh(mesh: Mesh, scene: dict, runs: int = 1, epoch_scan: int = 0) -> dict:
+    """fit_sequence(mesh=mesh, epoch_scan=epoch_scan) of the scene, `runs`
+    times from its initial parameters. Returns {"runs": [{"params",
+    "history", "segments"}] (rank 0's; the ranks hold the same parameters;
+    segments: the last metrics.jsonl line of each epoch-scan segment),
+    "launches": [each rank's kernel launches over the runs]}."""
+    import json
+    import os
+    import tempfile
+
     from harp_tpu_torch.fit.driver import FitData, fit_sequence
     from harp_tpu_torch.fit.params import init_params
 
@@ -69,9 +74,15 @@ def fit_sequence_on_mesh(mesh: Mesh, scene: dict, runs: int = 1) -> dict:
     out = []
     for _ in range(runs):
         params, aux = init_params(scene["init"], scene["assets"], scene["config"], device=dev)
-        params, history = fit_sequence(scene["config"], scene["assets"], data, params, aux,
-                                       rcfg=scene["rcfg"], mesh=mesh)
-        out.append({"params": _numpy(params), "history": history})
+        with tempfile.TemporaryDirectory() as tmp:
+            params, history = fit_sequence(scene["config"], scene["assets"], data, params, aux,
+                                           rcfg=scene["rcfg"], mesh=mesh, epoch_scan=epoch_scan,
+                                           out_dir=tmp)
+            segments = []
+            if mesh.rank == 0:  # the rank that writes the logs
+                with open(os.path.join(tmp, "metrics.jsonl")) as f:
+                    segments = [r for r in map(json.loads, f) if "segment_s" in r]
+        out.append({"params": _numpy(params), "history": history, "segments": segments})
     return {"runs": out, "launches": all_gather_object(mesh, kernel_launches())}
 
 

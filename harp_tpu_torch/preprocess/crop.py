@@ -1,8 +1,8 @@
 """Raw-frame crop and mask extraction (harp_tpu/preprocess/crop.py): the
 Unscreen step before METRO. Frames arrive as RGBA PNGs whose alpha is the
-segmentation mask; each is resized so that its short side is 448,
-centre-cropped to 448^2, and its RGB composited onto white through the
-resized soft mask. The outputs land in the layout data/dataset.py reads:
+segmentation mask (a JPEG frame has alpha 255, as Pillow reads it); each
+is resized so that its short side is 448, centre-cropped to 448^2, and
+its RGB composited onto white through the resized soft mask. The outputs land in the layout data/dataset.py reads:
 
   {out_root}/unscreen_cropped/%04d.jpg   white-background cropped RGB
   {out_root}/mask/%04d_mask.jpg          cropped 8-bit mask
@@ -130,14 +130,20 @@ def frame_index(path: str) -> int:
     return int(os.path.basename(path)[-8:-4])
 
 
-def _read_rgba(path: str) -> np.ndarray:
-    """An 8-bit PNG as (H, W, 4) RGBA, as Image.convert("RGBA") gives it:
-    RGB gains alpha 255, grey is copied to R, G and B. Palette, 16-bit and
+def _read_rgba(path: str, device) -> torch.Tensor:
+    """A frame as (H, W, 4) uint8 RGBA on `device`, as Image.convert("RGBA")
+    gives it: RGB gains alpha 255, grey is copied to R, G and B. A JPEG
+    decodes through native.decode_jpeg_batch (libjpeg on the CPU, nvJPEG
+    on the card); a PNG through utils/viz.decode_png. Palette, 16-bit and
     interlaced PNGs are refused."""
+    from harp_tpu_torch.native import decode_jpeg_batch
     from harp_tpu_torch.utils.viz import decode_png
 
+    if path.lower().endswith((".jpg", ".jpeg")):
+        rgb = torch.round(decode_jpeg_batch([path], device=device)[0] * 255.0).to(torch.uint8)
+        return torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], 2)
     if not path.lower().endswith(".png"):
-        raise ValueError(f"crop reads PNG frames only: {path}")
+        raise ValueError(f"crop reads PNG and JPEG frames only: {path}")
     with open(path, "rb") as f:
         data = f.read()
     _, _, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", data[16:29])
@@ -152,24 +158,24 @@ def _read_rgba(path: str) -> np.ndarray:
     if img.shape[2] <= 2:  # grey (+ alpha)
         grey = np.repeat(img[..., :1], 3, axis=2)
         alpha = img[..., 1:2] if img.shape[2] == 2 else np.full_like(img[..., :1], 255)
-        return np.concatenate([grey, alpha], 2)
-    if img.shape[2] == 3:
-        return np.concatenate([img, np.full_like(img[..., :1], 255)], 2)
-    return img
+        img = np.concatenate([grey, alpha], 2)
+    elif img.shape[2] == 3:
+        img = np.concatenate([img, np.full_like(img[..., :1], 255)], 2)
+    return torch.from_numpy(np.ascontiguousarray(img)).to(device)
 
 
 def crop_frame(unscreen_path: str, ori_path: str | None = None, res: int = RESOLUTION,
                device=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """One frame: RGBA unscreen PNG -> (cropped white-background RGB
-    (res, res, 3), cropped mask (res, res)), uint8 tensors on `device`
-    (CUDA unless given). The RGB comes from ori_path (the original
-    full-size frame) where that file exists, else from the unscreen
-    frame itself."""
+    """One frame: an unscreen PNG or JPEG, as RGBA -> (cropped
+    white-background RGB (res, res, 3), cropped mask (res, res)), uint8
+    tensors on `device` (CUDA unless given). The RGB comes from ori_path
+    (the original full-size frame) where that file exists, else from the
+    unscreen frame itself."""
     dev = resolve_device(device)
-    rgba = torch.from_numpy(_read_rgba(unscreen_path)).to(dev)
+    rgba = _read_rgba(unscreen_path, dev)
     mask = resize_center_crop(rgba[..., 3].contiguous(), res)
     if ori_path is not None and os.path.exists(ori_path):
-        full = torch.from_numpy(_read_rgba(ori_path)[..., :3].copy()).to(dev)
+        full = _read_rgba(ori_path, dev)[..., :3]
     else:
         full = rgba[..., :3]
     rgb = fill_img_background(resize_center_crop(full.contiguous(), res), mask)

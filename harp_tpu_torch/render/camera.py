@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.ops.numerics import safe_norm, safe_normalize
 
 OPENCV_TO_P3D_R = np.diag([-1.0, -1.0, 1.0]).astype(np.float32)
@@ -46,13 +47,13 @@ def look_at_rotation(camera_position: torch.Tensor, at: torch.Tensor,
                      up=(0.0, 1.0, 0.0)) -> torch.Tensor:
     """(B, 3) positions -> (B, 3, 3) R whose columns are the camera axes
     (pytorch3d look_at_rotation)."""
-    up = torch.as_tensor(up, dtype=camera_position.dtype,
-                         device=camera_position.device).expand_as(camera_position)
+    up = constant(up, camera_position.device,
+                  camera_position.dtype).expand_as(camera_position)
     z = at - camera_position
     z = z / torch.clamp(safe_norm(z, dim=-1, keepdim=True), min=1e-5)
     x = torch.linalg.cross(up, z, dim=-1)
     xn = safe_norm(x, dim=-1, keepdim=True)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=z.dtype, device=z.device)
+    x_axis = constant((1.0, 0.0, 0.0), z.device, z.dtype)
     x = torch.where(xn < 1e-5, x_axis, x / torch.clamp(xn, min=1e-12))
     y = safe_normalize(torch.linalg.cross(z, x, dim=-1))
     return torch.stack([x, y, z], dim=-1)

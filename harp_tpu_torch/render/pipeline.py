@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.models.mano import mano_forward
 from harp_tpu_torch.models.nimble import mano_protocol_joints, nimble_forward, nimble_to_mano
 from harp_tpu_torch.models.smplx_arm import smplx_arm_forward
@@ -55,7 +56,7 @@ def camera_for_frames(params: dict, fids: torch.Tensor, config):
     """(R, T) of the OpenCV-flip camera from the weak-perspective params."""
     cam = params["cam"][fids]
     T = cam_mod.weak_perspective_to_translation(cam, config.focal_length, config.img_size)
-    R = torch.as_tensor(cam_mod.OPENCV_TO_P3D_R, device=cam.device).expand(fids.shape[0], 3, 3)
+    R = constant(cam_mod.OPENCV_TO_P3D_R, cam.device).expand(fids.shape[0], 3, 3)
     return R, T
 
 
@@ -135,7 +136,8 @@ def render_normal(verts, assets, R, T, config, raster_cfg: RasterConfig,
         uv = shading.pixel_uvs(ids, bary, assets.verts_uvs, assets.faces_uvs)
         nm_px = shading.sample_texture_bilinear(safe_normalize(normal_map), uv)
         pixel_normals = shading.apply_normal_map(pixel_normals, nm_px)
-    flipped = pixel_normals * pixel_normals.new_tensor([1.0, -1.0, -1.0])
+    flipped = pixel_normals * constant((1.0, -1.0, -1.0), pixel_normals.device,
+                                       pixel_normals.dtype)
     return shading.composite_hard((flipped + 1.0) / 2.0, mask, config.background_color)
 
 

@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.ops.segment import SegmentOrder, gather_rows
 
 TC = 8  # active-tile budget granularity (harp_tpu's Pallas TC)
@@ -72,7 +73,7 @@ def as_faces(faces, device) -> torch.Tensor:
     """Face table as an int64 index tensor on `device`."""
     if isinstance(faces, torch.Tensor):
         return faces.to(device=device, dtype=torch.int64)
-    return torch.as_tensor(np.asarray(faces), dtype=torch.int64, device=device)
+    return constant(faces, device, np.int64)
 
 
 def num_tiles(cfg: RasterConfig) -> int:
@@ -318,7 +319,8 @@ def scatter_tiles(x: torch.Tensor, act_idx: torch.Tensor, cfg: RasterConfig, fil
     (a scalar or a tensor broadcastable to the trailing dims)."""
     B, A, P = x.shape[:3]
     T = num_tiles(cfg)
-    fill = torch.as_tensor(fill, dtype=x.dtype, device=x.device)
+    fill = (fill.to(device=x.device, dtype=x.dtype) if isinstance(fill, torch.Tensor)
+            else constant(fill, x.device, x.dtype))
     full = fill.expand((B, T, P) + x.shape[3:])
     b = torch.arange(B, device=x.device)[:, None]
     full = full.index_put((b, act_idx.long()), x)

@@ -8,12 +8,20 @@ mapping in a Pixar tangent frame, point-light Phong terms.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.ops.numerics import jnp_clip, safe_normalize
 from harp_tpu_torch.ops.segment import SegmentOrder, gather_rows
 from harp_tpu_torch.render.rasterizer import as_faces, face_row_order
+
+
+def _table(x, device, dtype) -> torch.Tensor:
+    """x on `device` in `dtype`: a tensor as it is, a host constant (the
+    assets' UVs, a configured colour) copied once (device.constant)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return constant(x, device, dtype)
 
 
 def texel_corner_rows(uv: torch.Tensor, H: int, W: int):
@@ -56,7 +64,7 @@ def interpolate_packed_attrs(verts, normals_v, faces, verts_uvs, faces_uvs,
     dev = verts.device
     f = as_faces(faces, dev)
     F = f.shape[0]
-    vuv = torch.as_tensor(verts_uvs, dtype=verts.dtype, device=dev)
+    vuv = _table(verts_uvs, dev, verts.dtype)
     fuv = vuv[as_faces(faces_uvs, dev)]  # (F, 3, 2)
     packed = torch.cat([verts[:, f], normals_v[:, f], fuv.expand(B, -1, -1, -1)], -1)
     if order is None:
@@ -80,7 +88,7 @@ def interpolate_face_vertex_attrs(attrs: torch.Tensor, faces, ids: torch.Tensor,
 def pixel_uvs(ids: torch.Tensor, bary: torch.Tensor, verts_uvs, faces_uvs) -> torch.Tensor:
     """Wedge-UV interpolation: (..., 2) uv coordinates at pixels (the UVs
     are constants: a plain gather)."""
-    vuv = torch.as_tensor(np.asarray(verts_uvs), dtype=bary.dtype, device=bary.device)
+    vuv = _table(verts_uvs, bary.device, bary.dtype)
     fuv = vuv[as_faces(faces_uvs, bary.device)].reshape(-1, 6)  # (F, 6)
     g = fuv[ids.long().clamp(min=0)].reshape(ids.shape + (3, 2))
     return (g * bary[..., None]).sum(-2)
@@ -88,7 +96,7 @@ def pixel_uvs(ids: torch.Tensor, bary: torch.Tensor, verts_uvs, faces_uvs) -> to
 
 def composite_hard(colors: torch.Tensor, mask: torch.Tensor, background) -> torch.Tensor:
     """(..., 3) shaded colours over a constant background where ~mask."""
-    bg = torch.as_tensor(background, dtype=colors.dtype, device=colors.device)
+    bg = _table(background, colors.device, colors.dtype)
     return torch.where(mask[..., None], colors, bg)
 
 
@@ -121,7 +129,7 @@ def phong_lighting(points, normals, light_position, camera_position,
     dev, dt = points.device, points.dtype
 
     def col(c):
-        return torch.as_tensor(c, dtype=dt, device=dev)
+        return _table(c, dev, dt)
 
     nrm = safe_normalize(normals)
     ldir = safe_normalize(light_position.reshape((B,) + extra + (3,)) - points)

@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.ops.numerics import safe_norm
 from harp_tpu_torch.render import camera as cam_mod
 from harp_tpu_torch.render.rasterizer import RasterConfig
@@ -53,7 +54,7 @@ def shadow_cameras(cam, light_positions, hand_center, config):
     cam_T = cam_mod.weak_perspective_to_translation(cam, config.focal_length,
                                                     config.img_size)
     B = cam.shape[0]
-    cam_R = torch.as_tensor(cam_mod.OPENCV_TO_P3D_R, device=cam.device).expand(B, 3, 3)
+    cam_R = constant(cam_mod.OPENCV_TO_P3D_R, cam.device).expand(B, 3, 3)
     dtype = light_positions.dtype
     light_positions, hand_center = light_positions.double(), hand_center.double()
     delta = light_positions - hand_center

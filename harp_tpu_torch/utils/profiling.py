@@ -65,7 +65,8 @@ def annotate(name: str):
 
 
 class MetricsLogger:
-    """Append-only JSONL scalar logger: one {"step", "ts", ...} per log."""
+    """Append-only JSONL scalar logger: one {"step", "ts", ...} per log;
+    numbers as floats, flags as booleans."""
 
     def __init__(self, out_dir: str, filename: str = "metrics.jsonl"):
         os.makedirs(out_dir, exist_ok=True)
@@ -74,7 +75,7 @@ class MetricsLogger:
 
     def log(self, step: int, **scalars) -> None:
         rec = {"step": step, "ts": time.time()}
-        rec.update({k: float(v) for k, v in scalars.items()})
+        rec.update({k: v if isinstance(v, bool) else float(v) for k, v in scalars.items()})
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
 

@@ -241,11 +241,11 @@ def test_known_appearance_keeps_the_fitted_appearance(root, run):
 
 
 def test_cli_refuses_later_slices_and_missing_data(root, tmp_path, capsys):
-    for flags, said in ((["--epoch-scan", "10"], "ROADMAP Queue 1 item 2"),
-                        (["--epoch-scan", "2"], "ROADMAP Queue 1 item 2")):
-        with pytest.raises(SystemExit):
-            fit_avatar.parse_args(_argv(root, tmp_path) + flags)
-        assert said in capsys.readouterr().err
+    # The epoch scan is ported: --epoch-scan 10 by default, as in harp_tpu.
+    assert fit_avatar.parse_args(_argv(root, tmp_path)).epoch_scan == 10
+    for n in ("10", "2", "0"):
+        assert fit_avatar.parse_args(_argv(root, tmp_path) + ["--epoch-scan", n]).epoch_scan \
+            == int(n)
     # The turntables are ported: on by default, as in harp_tpu.
     assert fit_avatar.parse_args([a for a in _argv(root, tmp_path)
                                   if a != "--no-turntables"]).turntables

@@ -142,8 +142,41 @@ def test_crop_refuses_what_it_cannot_read(tmp_path):
     data = bytearray(viz.encode_png(img))
     data[28] = 1  # IHDR's interlace byte (its CRC is not checked)
     (tmp_path / "inter.png").write_bytes(bytes(data))
-    Image.fromarray(img).save(tmp_path / "frame.jpg")
+    Image.fromarray(img).save(tmp_path / "frame.bmp")
     for name, match in (("pal.png", "with a palette"), ("deep.png", "with bit depth 16"),
-                        ("inter.png", "with interlace"), ("frame.jpg", "PNG frames only")):
+                        ("inter.png", "with interlace"),
+                        ("frame.bmp", "PNG and JPEG frames only")):
         with pytest.raises(ValueError, match=match):
             crop_frame(str(tmp_path / name), None, 8, device="cpu")
+
+
+@pytest.mark.parametrize("pil_writer", [True, False])
+def test_crop_reads_jpeg_frames_as_pillows_rgba(tmp_path, pil_writer):
+    """A .jpg unscreen frame (list_frames returns them) and a .jpg original,
+    RGB and grey: decoded by libjpeg with alpha 255, as Pillow's
+    convert("RGBA") reads them; the same bits as harp_tpu's crop_frame.
+    The JPEGs are Pillow's or the port's own (libjpeg at quality 95)."""
+    from harp_tpu_torch.native import encode_jpeg
+
+    un = tmp_path / "unscreen"
+    un.mkdir()
+    frames = {"0000.jpg": _image(70, 45, 3, 1), "0001.jpg": _image(40, 90, 1, 2),
+              "0002.png": np.concatenate([_image(50, 50, 3, 3),
+                                          _soft_alpha(50, 50, 3)[..., None]], 2)}
+    for name, arr in frames.items():
+        if pil_writer or name.endswith(".png"):
+            Image.fromarray(arr).save(un / name, quality=95)
+        else:
+            encode_jpeg(torch.from_numpy(arr), str(un / name), 95)
+    ori = tmp_path / "ori.jpg"
+    Image.fromarray(_image(50, 50, 3, 4)).save(ori, quality=90)
+    paths = C.list_frames(str(un))
+    assert paths == JC.list_frames(str(un)) and len(paths) == 3
+    for path in paths:
+        for ori_path in (None, str(ori)):
+            want_rgb, want_mask = JC.crop_frame(path, ori_path, 24)
+            rgb, mask = crop_frame(path, ori_path, 24, device="cpu")
+            np.testing.assert_array_equal(rgb.numpy(), want_rgb, err_msg=path)
+            np.testing.assert_array_equal(mask.numpy(), want_mask, err_msg=path)
+        if path.endswith(".jpg"):
+            assert (mask == 255).all()

@@ -682,3 +682,74 @@ def test_turntable_on_the_card_in_groups_is_one_view_at_a_time(cuda):
                                                chunk=8), one)
     one = viz.light_sweep_views(gt, 0, assets, config, rcfg, num=4, chunk=1)
     assert torch.equal(viz.light_sweep_views(gt, 0, assets, config, rcfg, num=4, chunk=4), one)
+
+
+@pytest.fixture(scope="module")
+def scan_fits(tmp_path_factory):
+    """fit_sequence(epoch_scan=2) of the light hand at 64^2 (4 frames,
+    minibatches of 2, VGG bf16 with the cached GT, stages 2 / 2 / 2: one
+    segment of 4 steps a stage, the first a warm-up, then the capture and
+    three replays), as CUDA graphs and, under anomaly mode, eagerly."""
+    import dataclasses
+    import json
+    import os
+
+    from harp_tpu_torch.fit.driver import FitData, fit_sequence
+    from harp_tpu_torch.fit.params import init_params
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cuda = torch.device("cuda")
+    assets, config, rcfg, data, init = _light_fit_scene(cuda, n_frames=4, img=64)
+    config = dataclasses.replace(config, batch_size=2, training_stage=(2, 2, 2), total_epoch=6)
+    out = {}
+    for name, anomaly in (("graph", False), ("eager", True)):
+        params, aux = init_params(init, assets, config, device=cuda)
+        out_dir = str(tmp_path_factory.mktemp(name))
+        with torch.autograd.set_detect_anomaly(anomaly):
+            params, hist = fit_sequence(config, assets, FitData(*data), params, aux, rcfg=rcfg,
+                                        out_dir=out_dir, epoch_scan=2)
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            lines = [r for r in map(json.loads, f) if "loss" in r]
+        out[name] = (params, hist, lines)
+    return out
+
+
+def test_epoch_scan_replays_are_the_eager_segments_bit_for_bit(scan_fits):
+    (pg, hg, _), (pe, he, _) = scan_fits["graph"], scan_fits["eager"]
+    assert hg == he and [h["epoch"] for h in hg] == list(range(6))
+    for k in pg:
+        assert torch.equal(pg[k], pe[k]), k
+
+
+def test_epoch_scan_captures_every_stage_flag_pair(scan_fits):
+    lines = scan_fits["graph"][2]
+    ends = [r for r in lines if "segment_s" in r]
+    assert [r["epoch"] for r in ends] == [1.0, 3.0, 5.0]
+    assert [r["graph"] for r in ends] == [True] * 3
+    assert len([r for r in lines if "capture_s" in r]) == 3
+    assert [r["graph"] for r in scan_fits["eager"][2] if "segment_s" in r] == [False] * 3
+    assert scan_fits["graph"][1][-1]["loss"] < scan_fits["graph"][1][0]["loss"]
+
+
+def test_jpeg_frame_crop_on_the_card_is_within_the_decode_bound(cuda, tmp_path):
+    """An RGB frame written as JPEG by nvJPEG and cropped on the card
+    (nvJPEG's decode, alpha 255) against the crop of the same frame,
+    losslessly, on the CPU: within a mean of 0.015 (harp_tpu's JPEG bound);
+    the masks equal (255)."""
+    from harp_tpu_torch import native
+    from harp_tpu_torch.preprocess import crop as C
+    from harp_tpu_torch.utils import viz
+
+    yy, xx = np.mgrid[0:120, 0:90].astype(np.float32)
+    img = np.stack([0.5 + 0.4 * np.sin(xx / (5 + 3 * c) + yy / 11.0) for c in range(3)], -1)
+    arr = (img * 255).astype(np.uint8)
+    jpg, png = str(tmp_path / "0000.jpg"), str(tmp_path / "0000.png")
+    native.encode_jpeg(torch.from_numpy(arr).to(cuda), jpg, 95)
+    with open(png, "wb") as f:
+        f.write(viz.encode_png(arr))
+    rgb, mask = C.crop_frame(jpg, None, 48, device=cuda)
+    want_rgb, want_mask = C.crop_frame(png, None, 48, device="cpu")
+    assert rgb.is_cuda and rgb.shape == (48, 48, 3)
+    assert torch.equal(mask.cpu(), want_mask) and bool((want_mask == 255).all())
+    assert float((rgb.cpu().float() - want_rgb.float()).abs().mean()) / 255.0 < 0.015

@@ -350,9 +350,26 @@ def test_cli_debug_nans_fits_under_anomaly_mode(monkeypatch, tmp_path):
 def test_cli_refuses_what_is_not_ported_and_needs_a_device(monkeypatch, tmp_path):
     from harp_tpu_torch.fit_avatar import main
 
-    for flags in (["--use-arm", "--smplx-npz", "SMPLX_NEUTRAL.npz"], ["--epoch-scan", "2"], []):
+    for flags in (["--use-arm", "--smplx-npz", "SMPLX_NEUTRAL.npz"], []):
         with pytest.raises(SystemExit):
             main((["--synthetic"] if flags else []) + flags + ["--device", "cpu"])
+    # --epoch-scan is ported (default 10, harp_tpu's) and reaches the fit.
+    seen = []
+
+    def fit_sequence(*args, **kwargs):
+        seen.append(kwargs["epoch_scan"])
+        raise KeyboardInterrupt  # stop before the fit
+
+    from harp_tpu_torch.fit import driver
+
+    monkeypatch.setattr(driver, "fit_sequence", fit_sequence)
+    argv = ["--synthetic", "--device", "cpu", "--n-frames", "2", "--img-size", "32",
+            "--texture-size", "16", "--density", "light", "--out", str(tmp_path)]
+    for flags in (["--epoch-scan", "2"], []):
+        with pytest.raises(KeyboardInterrupt):
+            main(argv + flags)
+    assert seen == [2, 10]
+    monkeypatch.undo()
     # --mesh-devices beyond the visible CUDA devices raises: no fewer ranks,
     # no quiet fall-back to the CPU.
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

@@ -189,7 +189,7 @@ def test_checkpoint_resume_equals_an_unbroken_fit(scene, tmp_path):
 
 
 def test_fit_sequence_refuses_what_is_not_ported(scene):
-    for kw in (dict(epoch_scan=10), dict(prefetch_compile=True), dict(prefetch_extra=[print])):
+    for kw in (dict(prefetch_compile=True), dict(prefetch_extra=[print])):
         with pytest.raises(NotImplementedError):
             _port_fit(scene, **kw)
     with pytest.raises(TypeError, match="Mesh"):  # a mesh is a parallel.Mesh
