@@ -48,7 +48,10 @@ with per stage the replayed and eager step times and a profiled replayed
 segment's kernels by name (epoch_scan); over two NCCL ranks on two cards
 where there are two (nccl_scan); the protocol through the CLI at its
 defaults, held to harp_tpu's recorded quality (protocol); graft_entry's
-forward on the card against the CPU (graft_entry).
+forward on the card against the CPU (graft_entry); the port's bench
+(harp_tpu_torch.bench: bench.py's four variants and the replayed step,
+the roofline, the breakdown) at 3 steps a variant, and the VGG step at
+weight 0 beside it (bench).
 
     python3 chip_smoke.py
 
@@ -63,16 +66,16 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and FP32
-# (non-tensor-core) operations/s.
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
+from harp_tpu_torch.bench import ARM_BUDGET, HAND_BUDGET, IMG, KERNEL_NAMES, TEX
+from harp_tpu_torch.utils.profiling import (
+    bound_ms, cuda_ms, device_record, nbytes, profile_window,
+)
+
 # FP32 operations of the raster kernels. bound_ms_binned counts them as the
 # first csrc/raster.cu did its work, every thread walking every binned face,
 # so that kernel designs are read against one number: per binned (pixel,
@@ -93,12 +96,12 @@ OPS_GRAD = 81   # per hit, K2: the log-sum's derivative (25), one edge's gradien
 # inside or within blur of more faces.
 
 B_STEP = 18  # frames of the step, and of the kernel checks and timings
-IMG, TEX = 448, 512  # image and texture sizes of the flagship fit
-# The arm's raster budget (the port's CLI takes it for --use-arm).
-# harp_tpu's CLI defaults (active 0.28, span 3) truncate the arm's 18-frame
-# synthetic sequence: its forearm takes up to 329 of 784 tiles a frame, and
-# faces span 4 tiles (phase arm_budget reads the counters on the card).
-ARM_BUDGET = dict(active_fraction=0.5, span_tiles=4, cap=448)
+# IMG, TEX: the image and texture sizes of the flagship fit. The raster
+# budgets, the bench's: HAND_BUDGET, and ARM_BUDGET, which the port's CLI
+# takes for --use-arm. harp_tpu's CLI defaults (active 0.28, span 3)
+# truncate the arm's 18-frame synthetic sequence: its forearm takes up to
+# 329 of 784 tiles a frame, and faces span 4 tiles (phase arm_budget reads
+# the counters on the card).
 # HTML's and NIMBLE's synthetic meshes are the light hand, not subdivided
 # (262 vertices, 500 faces): at 448^2 a face spans up to 8 tiles.
 ZOO_BUDGET = dict(active_fraction=0.5, span_tiles=8, cap=448)
@@ -119,52 +122,15 @@ def flagship(n_frames: int, device, arm: bool = False):
     """Assets, config, raster config and parameters of the flagship fit
     (448^2, texture 512, reference density, self-shadow, no VGG; the
     parameters of harp_tpu's __graft_entry__._build), of the MANO hand or,
-    with `arm`, of the SMPL-X arm (harp_tpu's value_arm_b18)."""
-    import torch
-    from harp_tpu_torch.assets import build_synthetic_arm_assets, build_synthetic_assets
-    from harp_tpu_torch.config import HarpConfig
-    from harp_tpu_torch.convert import params_from_numpy
-    from harp_tpu_torch.render.rasterizer import RasterConfig
+    with `arm`, of the SMPL-X arm (harp_tpu's value_arm_b18). harp_tpu's
+    bench budget (active_fraction 0.28, span_tiles 3) truncates this scene:
+    the synthetic sequence's hand (seed 0) occupies up to 275 of 784 tiles
+    and has faces wider than 3 tiles, in both packages. The budget is
+    widened until every overflow counter is zero (HAND_BUDGET)."""
+    from harp_tpu_torch.graft_entry import _build
 
-    build = build_synthetic_arm_assets if arm else build_synthetic_assets
-    assets = build(uv_size=TEX, density="reference")
-    config = HarpConfig(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
-                        use_arm=arm, self_shadow=True, w_vgg=0.0, batch_size=n_frames)
-    # harp_tpu's bench budget (active_fraction 0.28, span_tiles 3) truncates
-    # this scene: the synthetic sequence's hand (seed 0) occupies up to 275
-    # of 784 tiles and has faces wider than 3 tiles, in both packages. The
-    # budget is widened until every overflow counter is zero.
-    rcfg = (RasterConfig(image_size=IMG, **ARM_BUDGET) if arm else
-            RasterConfig(image_size=IMG, active_fraction=0.375, cap=448, span_tiles=4))
-    rng = np.random.RandomState(0)
-    params = params_from_numpy({
-        "pose": 0.15 * rng.randn(n_frames, 45),
-        "rot": 0.05 * rng.randn(n_frames, 3),
-        "trans": np.zeros((n_frames, 3)),
-        "shape": np.zeros(10),
-        "wrist_pose": np.zeros((n_frames, 3)),
-        "cam": np.tile([6.0, -0.08, -0.01], (n_frames, 1)),
-        "verts_disps": np.zeros((assets.num_render_verts, 1)),
-        "texture": np.full((TEX, TEX, 3), 0.7),
-        "normal_map": np.broadcast_to([0.0, 0.0, 1.0], (TEX, TEX, 3)),
-        "light_positions": np.tile([-0.5, -0.5, -0.5], (n_frames, 1)),
-        "amb_ratio": np.asarray(0.4),
-    }, device)
-    return assets, config, rcfg, params
-
-
-def cuda_ms(fn, iters: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return _build(IMG, TEX, n_frames, raster_kw=ARM_BUDGET if arm else HAND_BUDGET,
+                  use_arm=arm, device=device)
 
 
 def phase_build():
@@ -182,12 +148,10 @@ def phase_build():
 
 
 def phase_device() -> str:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    emit({"phase": "device", "nvidia_smi": smi})
-    return smi
+    rec = device_record()
+    print(rec["nvidia_smi"], flush=True)
+    emit({"phase": "device", **rec})
+    return rec["nvidia_smi"]
 
 
 def kernel_inputs(dev, n_frames: int, arm: bool = False):
@@ -277,15 +241,6 @@ def segment_sum_library(values, order):
 
     out = torch.zeros(order.num_rows, values.shape[1], device=values.device)
     return out.index_put_((order.key,), values, accumulate=True)
-
-
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def raster_work(name: str, args, cfg, blocks_per_sm: int) -> dict:
@@ -1930,10 +1885,7 @@ def phase_preprocess(dev, real: dict) -> None:
 SCAN_STAGES = (3, 3, 3)  # epochs of phase epoch_scan's stages (one step each)
 SCAN_TIMED = 12  # steps of each stage timed eagerly and replayed
 SCAN_PROFILED = 3  # replayed steps of each stage's profiled segment
-# Kernels by the names the profiler gives them (csrc/), and their counters.
-KERNEL_NAMES = {"raster_ids_soft": "raster_ids_kernel<true", "raster_ids_depth":
-                "raster_ids_kernel<false", "coverage_grad": "coverage_grad_kernel",
-                "pcf_scatter": "pcf_scatter_kernel", "segment_sum": "chunk_sums_kernel"}
+# KERNEL_NAMES: the kernels by the names the profiler gives them (csrc/).
 # harp_tpu's scan-against-loop tolerance (tests/test_fit_e2e.py): epoch
 # loss rtol 5e-5 inside the first segment, 1e-2 after; parameters rtol
 # 2e-3, atol epochs * 2 * lr + 2e-6.
@@ -1979,16 +1931,15 @@ def phase_epoch_scan(dev, seq) -> None:
     Every overflow counter 0. Then per stage, on a fresh state: the step
     timed eagerly and replayed (SCAN_TIMED steps each, CUDA-synchronised
     host clock), and one replayed segment of SCAN_PROFILED steps under
-    torch.profiler, whose kernels by name must be the per-step launches
-    times the steps, with its device-busy ms. And the per-step loop with
+    torch.profiler (profile_window), whose kernels by name must be the
+    per-step launches times the steps, with its device-busy ms and idle
+    gaps. And the per-step loop with
     the plain Adams of before (not capturable): how far the capturable
     Adams moved the loop's bits (numbers only)."""
     import dataclasses
     import tempfile
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from harp_tpu_torch.fit.driver import (
         OVERFLOW_KEYS, FitData, _key_stream_np, fit_sequence, make_epoch_scan, make_train_step,
     )
@@ -2077,27 +2028,21 @@ def phase_epoch_scan(dev, seq) -> None:
             if not torch.isfinite(out).all():
                 fail(f"epoch_scan: {label} {mode} steps gave non-finite sums")
             if use_graph:
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    scan.run(*segment(SCAN_PROFILED, 2 * SCAN_TIMED + 2),
-                             config.plateau_patience, config.plateau_factor)
-                    torch.cuda.synchronize()
-                    wall_ms = (time.perf_counter() - t0) * 1e3
-                rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-                busy = sum(r[1] for r in rows)
-                counts = {name: sum(c for key, _, c in rows if pat in key)
-                          for name, pat in KERNEL_NAMES.items()}
+                prof = profile_window(
+                    lambda: scan.run(*segment(SCAN_PROFILED, 2 * SCAN_TIMED + 2),
+                                     config.plateau_patience, config.plateau_factor),
+                    kernel_names=KERNEL_NAMES)
+                counts = prof["kernel_counts"]
                 per_step = expected_launches(*n_of)
                 want = {k: v * SCAN_PROFILED for k, v in per_step.items()}
                 stages[label] = {"eager_step_ms": ms["eager"], "replayed_step_ms": ms["graph"],
                                  "capture_s": scan.capture_s,
-                                 "profiled_steps": SCAN_PROFILED, "profiled_wall_ms": wall_ms,
-                                 "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+                                 "profiled_steps": SCAN_PROFILED,
+                                 "profiled_wall_ms": prof["wall_ms"],
+                                 "device_busy_ms": prof["device_busy_ms"],
+                                 "device_busy_share": prof["device_busy_share"],
                                  "kernel_counts": counts, "expected_counts": want,
-                                 "top": [{"name": k[:80], "self_device_ms": t, "count": c}
-                                         for k, t, c in sorted(rows, key=lambda r: -r[1])[:8]]}
+                                 "top": prof["top"][:8], "idle_gaps": prof["idle_gaps"][:3]}
                 if counts != want:
                     fail(f"epoch_scan: {label}: profiled kernels of {SCAN_PROFILED} replayed "
                          f"steps {counts}, expected {want}")
@@ -2187,45 +2132,61 @@ def phase_nccl_scan(dev, seq) -> None:
         fail(f"nccl_scan: loss rel {loss_rel}, parameters beyond {bound}: {over}")
 
 
-# harp_tpu's recorded protocol (RESULTS.md:350-352) and PERF.md section 2's limits.
-PROTOCOL_REF = {"Silhouette IoU": (0.9386, 0.01), "L1": (0.0051, 0.002), "MS_SSIM": (0.9790, 0.01)}
-
-
 def phase_protocol(dev) -> None:
-    """The protocol as a user runs it: python -m harp_tpu_torch.fit_avatar
-    --synthetic --n-frames 36 with every other flag at its default (301
-    epochs, 448^2, B18, shadow, VGG bf16 with the cached GT, --epoch-scan
-    10, the turntables), in this process. The fit and eval walls, the
-    turntables' seconds, IoU / L1 / MS-SSIM within PERF.md's limits of
-    harp_tpu's recorded protocol, every segment a graph, every overflow
-    counter 0."""
-    import tempfile
+    """The protocol as a user runs it (harp_tpu_torch.bench.run_protocol):
+    the CLI at its defaults with 36 frames (301 epochs, 448^2, B18,
+    shadow, VGG bf16 with the cached GT, --epoch-scan 10, the turntables).
+    The fit and eval walls, the turntables' seconds, IoU / L1 / MS-SSIM
+    within PERF.md's limits of harp_tpu's recorded protocol, every segment
+    a graph, every overflow counter 0."""
+    from harp_tpu_torch.bench import run_protocol
 
-    from harp_tpu_torch.fit.driver import OVERFLOW_KEYS
+    rec = run_protocol()
+    emit({"phase": "protocol", **rec})
+    if rec["failures"]:
+        fail("protocol: " + "; ".join(rec["failures"]))
 
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--synthetic", "--n-frames", "36", "--out", tmp]
-        stats, wall, _, epochs = _run_cli(argv)
-    seg = [r for r in epochs if "segment_s" in r]
-    counters = {k: max(r.get(k, 0.0) for r in epochs) for k in OVERFLOW_KEYS}
-    gaps = {k: stats[k] - ref for k, (ref, _) in PROTOCOL_REF.items()}
-    emit({"phase": "protocol", "argv": argv, "cli_wall_s": wall,
-          **{k: stats.get(k) for k in ("fit_wall_s", "eval_wall_s", "eval_turntables_s",
-                                       "Silhouette IoU", "L1", "MS_SSIM", "LPIPS_proxy",
-                                       "final_loss")},
-          "harp_tpu_recorded": {k: ref for k, (ref, _) in PROTOCOL_REF.items()}, "gaps": gaps,
-          "epochs": len(epochs), "segments": len(seg),
-          "graph_segments": sum(bool(r["graph"]) for r in seg),
-          "capture_s": [r["capture_s"] for r in epochs if "capture_s" in r],
-          "segment_s_median": float(np.median([r["segment_s"] for r in seg])),
-          "lr_scale_last": epochs[-1]["lr_scale"], "overflow_max": counters})
-    if len(epochs) != 301 or not all(r["graph"] is True for r in seg):
-        fail(f"protocol: {len(epochs)} epochs, segments as graphs {[r['graph'] for r in seg]}")
-    if any(counters.values()):
-        fail(f"protocol: overflow counters {counters}")
-    for k, (ref, tol) in PROTOCOL_REF.items():
-        if not abs(stats[k] - ref) <= tol:
-            fail(f"protocol: {k} {stats[k]} is beyond {tol} of harp_tpu's {ref}")
+
+BENCH_STEPS = 3  # timed steps of each of the bench's variants in phase bench
+
+
+def phase_bench(dev) -> None:
+    """The port's bench (harp_tpu_torch.bench.run, as python -m
+    harp_tpu_torch.bench runs it) at BENCH_STEPS timed steps a variant:
+    bench.py's four variants (the VGG bf16 step at B18, the step without
+    VGG at B18 and B8, the arm at B18) and the VGG step replayed from the
+    epoch scan's CUDA graph, with the roofline and the headline's
+    breakdown; its JSON line printed as the bench prints it. The bench
+    fails on a non-finite loss, a non-zero overflow counter or a timed
+    step that did not launch every kernel. Then the headline's step with
+    the VGG term at weight 0 (harp_tpu's bench builds w_vgg=0.0 and still
+    runs the network): its time and device work beside the weight-1
+    step's. Fails on a non-finite value, a variant without busy ms or peak
+    memory, or a roofline share outside (0, 100]."""
+    from harp_tpu_torch import bench
+
+    rec = bench.run(steps=BENCH_STEPS)
+    print(json.dumps(rec), flush=True)
+    w0 = bench.measure(B_STEP, use_vgg=True, device=dev, steps=BENCH_STEPS, w_vgg=0.0)
+    w1 = rec["variants"]["vgg_b18"]
+    values = {k: rec[k] for k in ("value", "value_novgg_b18", "value_novgg_b8",
+                                  "value_arm_b18", "value_replayed")}
+    emit({"phase": "bench", "steps": BENCH_STEPS, **values,
+          "busy_ms": {k: v["busy_ms"] for k, v in rec["variants"].items()},
+          "launches": {k: v.get("launches") for k, v in rec["variants"].items()},
+          "vgg_w0": {k: w0[k] for k in ("trimmed_mean_ms", "median_ms", "busy_ms", "peak_gib",
+                                        "step_flops", "launches")},
+          "vgg_w0_minus_w1": {k: w0[k] - w1[k] for k in ("trimmed_mean_ms", "busy_ms",
+                                                           "step_flops")}})
+    if not all(np.isfinite(v) and v > 0 for v in values.values()):
+        fail(f"bench: values {values}")
+    for k, v in rec["variants"].items():
+        if not (v["busy_ms"] and v["peak_gib"]) or any(v["overflow"].values()):
+            fail(f"bench: {k}: busy {v['busy_ms']}, peak {v['peak_gib']}, "
+                 f"overflow {v['overflow']}")
+    for k in ("vgg_mfu_pct", "mfu_step_vgg"):
+        if not (rec["roofline"][k] and 0 < rec["roofline"][k] <= 100):
+            fail(f"bench: roofline {k} {rec['roofline'][k]}")
 
 
 def phase_graft_entry(dev) -> None:
@@ -2314,34 +2275,10 @@ def phase_segment_sum_shapes(run_step, per_step: int) -> None:
 
 
 def phase_profile(run_step, label: str) -> dict:
-    """Where one stage-2 step's device time goes (torch.profiler), and the
-    device's busy share of the step's wall time. Returns the record."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side events only (kernels, memcpy, memset): an operator's row
-    # repeats the device time of the kernels it launched.
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    # The same device time by the operator that launched it (self: kernels
-    # an aten op launched itself, not through the ops it called).
-    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
-    ops.sort(key=lambda r: -r[1])
-    rec = {"phase": "profile", "of": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_busy_share": busy_ms / wall_ms,
-           "top": [{"name": k[:80], "self_device_ms": ms, "count": c} for k, ms, c in rows[:15]],
-           "top_ops": [{"op": k[:60], "self_device_ms": ms, "count": c}
-                       for k, ms, c in ops[:12]]}
+    """Where one stage-2 step's device time goes (torch.profiler), the
+    device's busy share of the step's wall time, and its longest idle gaps
+    (utils/profiling.profile_window). Returns the record."""
+    rec = {"phase": "profile", "of": label, **profile_window(run_step)}
     emit(rec)
     return rec
 
@@ -2386,6 +2323,7 @@ def main() -> int:
     del seq, fit
     phase_protocol(dev)
     phase_graft_entry(dev)
+    phase_bench(dev)
     # The SMPL-X arm at reference density (harp_tpu's value_arm_b18), then
     # HTML and NIMBLE; each path's launches read from its own run.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
