@@ -20,7 +20,14 @@ sweep on the fitted parameters (turntables: files, two evals the same
 bytes, views in groups the same bits as one at a time, card against CPU,
 K1 depth-only at their shape, timed against its bound: turntable_kernels);
 the Unscreen crop of eight 1920 x 1080 RGBA frames on the card against the
-CPU, its JPEGs decoded through data/dataset.py (crop). Then the SMPL-X arm at reference
+CPU, its JPEGs decoded through data/dataset.py (crop); the dense raster API
+(raster_full, get_ids, rasterize_soft / hard, soft_alpha_fast) at the
+step's 18 frames through K1, ids equal to its plain version's, the alpha's
+gradient against the CPU's and its distance from K2's (dense_raster); the
+eval of the protocol's 36 frames as one CUDA graph (make_eval_program)
+against its eager body, bit for bit, with the walls of both, the capture
+apart, a second call with other parameters, and K1 at the eval's shape
+(eval_program, eval_kernels). Then the SMPL-X arm at reference
 density (4078 render vertices, 8128 faces): the kernels at its shapes
 (arm_kernel, each; arm_kernels, all with the arm step's launches), its
 card-vs-CPU step, its 18-frame 448^2 step without VGG
@@ -803,16 +810,19 @@ def phase_fit(dev, seq) -> dict:
     """fit_sequence at full width (the flagship: 18 frames of 448^2,
     reference density, self-shadow, VGG in bf16 with the cached GT,
     stages 2 / 2 / 2) twice from one seed, then evaluate_sequence on the
-    first: the loss per epoch, the JSONL's overflow counters, IoU / L1 /
-    MS-SSIM. The two fits' final parameters must be the same bits, the
-    last epoch's loss below the first's, every counter 0, and every kernel
-    launched in the fit as many times as its steps need."""
+    first through an eval program built for it (make_eval_program: the
+    call captures its CUDA graph): the loss per epoch, the JSONL's
+    overflow counters, IoU / L1 / MS-SSIM. The two fits' final parameters
+    must be the same bits, the last epoch's loss below the first's, every
+    counter 0, every kernel launched in the fit as many times as its steps
+    need, and the eval's kernels by name in a replay as eval_program_kernels
+    says. Returns the program too (captured; phase turntables replays it)."""
     import dataclasses
     import tempfile
 
     import torch
     from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, FitData, fit_sequence
-    from harp_tpu_torch.fit.evaluate import evaluate_sequence
+    from harp_tpu_torch.fit.evaluate import evaluate_sequence, make_eval_program
     from harp_tpu_torch.fit.params import init_params
 
     config = dataclasses.replace(seq["config"], w_vgg=1.0, training_stage=(2, 2, 2),
@@ -849,17 +859,21 @@ def phase_fit(dev, seq) -> dict:
                 losses = [h["loss"] for h in history]
                 if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
                     fail(f"fit: epoch losses {losses}")
+                prog, g = make_eval_program(config, seq["assets"], data, seq["rcfg"],
+                                            device=dev)
                 reset_launches()
                 t0 = time.perf_counter()
                 stats = evaluate_sequence(config, seq["assets"], data, params, aux,
-                                          rcfg=seq["rcfg"], out_dir=out_dir, device=dev)
+                                          rcfg=seq["rcfg"], out_dir=out_dir, device=dev,
+                                          eval_program=prog)
                 eval_s = time.perf_counter() - t0
-                eval_launches = read_launches()
+                eval_launches, _ = eval_program_kernels(prog, params, data, read_launches(),
+                                                        "fit")
                 n_png = len(os.listdir(os.path.join(out_dir, "rendered_after_opt")))
                 out = {"epoch_losses": losses, "fit_s": fit_s, "launches": launches,
                        "overflow_max": counters, "eval": stats, "eval_s": eval_s,
-                       "eval_launches": eval_launches, "eval_pngs": n_png,
-                       "vgg_terms": [h.get("vgg") for h in history]}
+                       "eval_launches": eval_launches, "eval_groups": B_STEP // g,
+                       "eval_pngs": n_png, "vgg_terms": [h.get("vgg") for h in history]}
                 if not (0.5 < stats["Silhouette IoU"] <= 1.0 and 0.0 < stats["MS_SSIM"] <= 1.0
                         and np.isfinite(stats["L1"]) and n_png == B_STEP):
                     fail(f"fit: eval {stats}, {n_png} composites")
@@ -869,7 +883,33 @@ def phase_fit(dev, seq) -> dict:
     emit({"phase": "fit", "frames": B_STEP, "epochs": config.total_epoch,
           "stages": list(config.training_stage), **out, "fit2_param_max_abs_diff": spread})
     return {"config": config, "params": finals[0], "losses": out["epoch_losses"],
-            "launches": out["launches"]}
+            "launches": out["launches"], "eval_program": prog}
+
+
+def eval_program_kernels(prog, params, data, capture_launches: dict, phase: str) -> tuple:
+    """The kernels of one replay of the eval program `prog` (captured by
+    the call whose launch counts are capture_launches: its warm-up group
+    and the captured groups, the host calls that recorded the kernels), by
+    name in torch.profiler's trace (a replay passes no launch counter).
+    Per group of frames K1 soft runs once (the silhouette) and K1 depth
+    three times (the shadow's light, the shadowed colour's camera, the
+    normal render's camera), K2 and K3 never (no backward); every kernel
+    runs in the replay as often as the capture recorded it, a group's
+    worth less the warm-up's. Returns (the counts, the profile_window
+    record of the replay); fails otherwise."""
+    from harp_tpu_torch.bench import KERNEL_NAMES
+
+    groups = prog.n // prog.g
+    prof = profile_window(lambda: prog(params, data.images, data.masks),
+                          kernel_names=KERNEL_NAMES)
+    got = prof["kernel_counts"]
+    want = {"raster_ids_soft": groups, "raster_ids_depth": 3 * groups, "coverage_grad": 0,
+            "pcf_scatter": 0}
+    recorded = {k: capture_launches.get(k, 0) * groups // (groups + 1) for k in got}
+    if any(got[k] != n for k, n in want.items()) or got != recorded:
+        fail(f"{phase}: the eval program's replay ran kernels {got}, expected {want} and "
+             f"the capture's {recorded} (of {capture_launches} with its warm-up group)")
+    return got, prof
 
 
 TT_VIEWS = 36  # views per axis of the eval's turntables
@@ -910,10 +950,12 @@ def phase_turntables(dev, seq, fit: dict) -> None:
     normal, 72 combined and 40 light-sweep PNGs and four GIFs) are there,
     and the two runs' are the same bytes; the overflow counters are 0 (a
     group whose turned mesh overflows the tile capacity is rendered again
-    with a wider one: turntable_rerenders); the turntables' K1 depth-only
-    launches are the eval's without them plus one a group of eight views
-    (2 x 9 + 5 = 23) plus the rerenders, and nothing else of the step's
-    kernels; the RGB and normal turntables rendered eight views at a time
+    with a wider one: turntable_rerenders); each eval replays phase fit's
+    captured eval program, which launches nothing from the host (its
+    kernels are counted by name in phase fit), so the turntables' K1
+    depth-only launches are the eval's without them (none) plus one a group
+    of eight views (2 x 9 + 5 = 23) plus the rerenders, and nothing else of
+    the step's kernels; the RGB and normal turntables rendered eight views at a time
     are the same bits as one view at a time; views 0, 35, h_0, h_35 and
     lights 0 and 39 agree with the CPU's plain versions within the test's
     bound (tests/test_torch_turntables.py: at most 0.5% of a view's pixels
@@ -934,6 +976,7 @@ def phase_turntables(dev, seq, fit: dict) -> None:
     from harp_tpu_torch.utils import viz
 
     config, params, assets = fit["config"], fit["params"], seq["assets"]
+    prog = fit["eval_program"]  # captured by phase fit: each eval here only replays it
     data = FitData(seq["images"], seq["masks"], seq["masks_er"])
     _, aux = init_params(seq["init"], assets, config, device=dev)
     subs = {"render_360": [f"{p}{i:04d}.png" for p in ("", "h_") for i in range(TT_VIEWS)],
@@ -949,10 +992,13 @@ def phase_turntables(dev, seq, fit: dict) -> None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             stats = evaluate_sequence(config, assets, data, params, aux, rcfg=seq["rcfg"],
-                                      out_dir=out_dir, turntables=turn, device=dev)
+                                      out_dir=out_dir, turntables=turn, device=dev,
+                                      eval_program=prog)
             torch.cuda.synchronize()
             runs.append((out_dir, stats, read_launches(), time.perf_counter() - t0))
         (_, _, base, base_s), (a_dir, stats, launches, eval_s), (b_dir, *_) = runs
+        if any(base.values()):
+            fail(f"turntables: the eval replayed from its graph launched {base} from the host")
         files = {}
         for sub, names in subs.items():
             got = sorted(os.listdir(os.path.join(a_dir, sub)))
@@ -1024,6 +1070,233 @@ def phase_turntables(dev, seq, fit: dict) -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"phase": "turntable_kernels", "kernels": [{k: k1[k] for k in keys}]})
+    prog.close()
+
+
+def _same_outputs(a, b) -> bool:
+    """Two eval program results (harp_tpu's six outputs and the overflow
+    counters) the same bits."""
+    import torch
+
+    return (all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
+            and a[6].keys() == b[6].keys() and all(torch.equal(a[6][k], b[6][k]) for k in a[6]))
+
+
+EVAL_FRAMES = 36  # the protocol's sequence
+
+
+def phase_eval_program(dev) -> None:
+    """make_eval_program at the protocol's size: the flagship hand's
+    36-frame sequence (seed 0), 448^2, B18 parameters (the fit's initial
+    ones, then the GT pose, camera and appearance), groups of 6 frames.
+    The same program eagerly (graph=False) and as one CUDA graph: the
+    eager pass's wall (first and second call), the graph's first call
+    (warm-up group, capture, replay) with capture_s apart, and the two
+    calls after it (a replay each, the second with other parameters); the
+    graph's outputs (metrics, uint8 composites, vertices, counters) the
+    same bits as the eager body's for the initial parameters and, after
+    the copy-in, for the GT ones, whose metrics differ from the initial
+    ones'; K1 found by name in a profiled replay (eval_program_kernels),
+    and the eager pass profiled beside it (busy ms); the peak memory of
+    the eager pass's first call and of the graph's (its pool); every
+    overflow counter 0. Then K1 soft and depth only at the eval's shape
+    (one group's camera pass, every tile active) against its plain
+    version, timed, with its bound and its launches an eval
+    (eval_kernels)."""
+    import torch
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+    from harp_tpu_torch.fit.driver import FitData
+    from harp_tpu_torch.fit.evaluate import make_eval_program
+    from harp_tpu_torch.fit.params import init_params
+
+    assets, config, rcfg, _ = flagship(EVAL_FRAMES, dev)
+    images, masks, masks_er, gt, init = make_synthetic_sequence(
+        assets, config, rcfg, n_frames=EVAL_FRAMES, seed=0, device=dev)
+    data = FitData(images, masks, masks_er)
+    p_init, _ = init_params(init, assets, config, device=dev)
+    p_gt = {k: (gt[k] if k in gt and gt[k].shape == v.shape else v).detach().clone()
+            for k, v in p_init.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    eager, g = make_eval_program(config, assets, data, rcfg, device=dev, graph=False)
+    prog, _ = make_eval_program(config, assets, data, rcfg, device=dev)
+    groups = EVAL_FRAMES // g
+    rec = {"phase": "eval_program", "frames": EVAL_FRAMES, "group": g, "groups": groups}
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    reset_launches()
+    e_init, rec["eager_first_s"] = timed(lambda: eager(p_init, images, masks))
+    eager_launches = read_launches()
+    rec["eager_peak_gib_above_base"] = torch.cuda.max_memory_allocated() / 2**30 - base_gib
+    e_init2, rec["eager_s"] = timed(lambda: eager(p_init, images, masks))
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    reset_launches()
+    g_init, rec["graph_first_call_s"] = timed(lambda: prog(p_init, images, masks))
+    capture_launches = read_launches()
+    rec["capture_s"] = prog.capture_s
+    rec["graph_peak_gib_above_base"] = torch.cuda.max_memory_allocated() / 2**30 - base_gib
+    g_init2, rec["first_replay_s"] = timed(lambda: prog(p_init, images, masks))
+    g_gt, rec["second_replay_other_params_s"] = timed(lambda: prog(p_gt, images, masks))
+    e_gt, rec["eager_other_params_s"] = timed(lambda: eager(p_gt, images, masks))
+    rec["eager_launches"] = eager_launches
+    rec["capture_launches"] = capture_launches
+    for name, a, b in (("eager twice", e_init, e_init2), ("graph vs eager", g_init, e_init),
+                       ("graph twice", g_init, g_init2),
+                       ("graph vs eager, other parameters", g_gt, e_gt)):
+        if not _same_outputs(a, b):
+            fail(f"eval_program: {name}: outputs differ "
+                 f"(metrics max {float((torch.stack(a[:4]) - torch.stack(b[:4])).abs().max())}, "
+                 f"composite codes {int((a[4] != b[4]).sum())})")
+    per_group = {k: v // groups for k, v in eager_launches.items()}
+    if any(eager_launches[k] != per_group[k] * groups or capture_launches[k] != per_group[k]
+           * (groups + 1) for k in eager_launches):
+        fail(f"eval_program: eager launches {eager_launches}, capture's {capture_launches}")
+    metrics = {}
+    for name, out in (("init", g_init), ("gt", g_gt)):
+        m = torch.stack(out[:4]).double().mean(1).cpu().tolist()
+        metrics[name] = dict(zip(("iou", "l1", "perc", "msss"), m))
+        overflow = {k: int(v) for k, v in out[6].items()}
+        if any(overflow.values()) or not all(np.isfinite(m)):
+            fail(f"eval_program: {name}: metrics {m}, overflow {overflow}")
+    rec["metrics"] = metrics
+    if metrics["init"] == metrics["gt"] or not 0.5 < metrics["gt"]["iou"] <= 1.0:
+        fail(f"eval_program: metrics {metrics}")
+    counts, prof = eval_program_kernels(prog, p_gt, data, capture_launches, "eval_program")
+    rec["replay_kernels"] = counts
+    rec["replay_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                  "device_busy_share", "top")}
+    eprof = profile_window(lambda: eager(p_gt, images, masks))
+    rec["eager_profile"] = {k: eprof[k] for k in ("wall_ms", "device_busy_ms",
+                                                  "device_busy_share")}
+    eager.close()
+    prog.close()
+    emit(rec)
+
+    # K1 at the eval's shape: the camera pass of the first group (every
+    # tile active), soft (the silhouette) and depth only (the colour and
+    # normal renders), with the launches of one eval.
+    from harp_tpu_torch.render import camera as cam_mod
+    from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+    from harp_tpu_torch.render.rasterizer import raster_compact
+
+    ercfg = eval_rcfg(rcfg)
+    with torch.no_grad():
+        fids = torch.arange(g, device=dev)
+        verts, _ = pipeline.mesh_forward(p_gt, fids, assets, config)
+        Rm, T = pipeline.camera_for_frames(p_gt, fids, config)
+        screen = cam_mod.screen_from_world(verts, Rm, T, config.focal_length, config.img_size)
+        bins = raster_compact(screen, assets.render_faces, ercfg)["bins"]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    occupancy = rk.blocks_per_sm(ercfg.tile)
+    kernels = []
+    for name, soft in (("raster_ids_soft", True), ("raster_ids_depth", False)):
+        k1 = raster_record(name, bins, ercfg, soft, occupancy[name])
+        k1["launches"] = counts[name]
+        kernels.append({k: k1[k] for k in keys})
+    emit({"phase": "eval_kernels", "frames": g, "active_tiles": int(bins["act_idx"].shape[1]),
+          "kernels": kernels})
+
+
+def phase_dense_raster(dev, seq) -> None:
+    """The dense raster API on the flagship's 18 frames at 448^2 (the GT
+    parameters, the step's raster budget): raster_camera_view (raster_full
+    soft + hard), get_ids, rasterize_hard (depth only), rasterize_soft and
+    soft_alpha_fast's gradient, driven with the launch counts at 0 (K1
+    soft 3, K1 depth 1, nothing else); every id the same as K1's plain
+    version (raster_ids_plain on the same bins, scattered alike), soft_sum
+    within rtol 1e-5; soft_alpha_fast's gradient on the card within 1e-4
+    of the largest entry of the CPU's (the same ids); its distance from
+    K2's all-faces gradient (soft_alpha_fast_pack) as a number, with the
+    pixels whose K id slots are all filled; raster_full's ms beside
+    raster_compact's (the scatter), and the gradient's ms."""
+    import dataclasses
+
+    import torch
+    from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.render import rasterizer as R
+    from harp_tpu_torch.render.kernels import raster_kernel as rk
+
+    assets, config, rcfg = seq["assets"], seq["config"], seq["rcfg"]
+    faces = assets.render_faces
+    fids = torch.arange(B_STEP, device=dev)
+    with torch.no_grad():
+        verts, _ = pipeline.mesh_forward(seq["gt"], fids, assets, config)
+        Rm, T = pipeline.camera_for_frames(seq["gt"], fids, config)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def alpha_grad(ids, ssum, screen, g):
+        v = screen.detach().requires_grad_(True)
+        alpha = R.soft_alpha_fast(ids, ssum, v, faces, rcfg)
+        return torch.autograd.grad((alpha * g).sum(), v)[0]
+
+    reset_launches()
+    screen, full = pipeline.raster_camera_view(verts, assets, Rm, T, config, rcfg)
+    soft, hard = R.get_ids(screen, faces, rcfg)
+    hard_only = R.rasterize_hard(screen, faces, rcfg)
+    soft_only = R.rasterize_soft(screen, faces, rcfg)
+    g = torch.randn(full["soft_sum"].shape, generator=gen, device=dev)
+    grad = alpha_grad(full["soft_ids"], full["soft_sum"], screen, g)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"raster_ids_soft": 3, "raster_ids_depth": 1, "coverage_grad": 0, "pcf_scatter": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"dense_raster: launches {launches}, expected {want}")
+    rec = {"phase": "dense_raster", "frames": B_STEP, "launches": launches,
+           "overflow": {k: int(full[k].sum()) for k in R.OVERFLOW}}
+    if any(rec["overflow"].values()):
+        fail(f"dense_raster: overflow {rec['overflow']}")
+
+    out = R.raster_compact(screen, faces, rcfg)
+    b, act = out["bins"], out["act_idx"]
+    args = (b["fv9"], b["s_face"], b["start_a"], b["count_a"], b["act_idx"])
+    hard_p, soft_p, ssum_p = rk.raster_ids_plain(
+        *args, dataclasses.replace(rcfg, face_chunk=PLAIN_FACE_CHUNK), True)
+    plain = {"soft_ids": R.scatter_tiles(soft_p, act, rcfg, -1),
+             "soft_sum": R.scatter_tiles(ssum_p, act, rcfg, 0.0),
+             "hard_ids": R.scatter_tiles(hard_p, act, rcfg, -1)}
+    for name, got, key in (("raster_full soft", full["soft_ids"], "soft_ids"),
+                           ("raster_full hard", full["hard_ids"], "hard_ids"),
+                           ("get_ids soft", soft, "soft_ids"), ("get_ids hard", hard, "hard_ids"),
+                           ("rasterize_hard", hard_only, "hard_ids"),
+                           ("rasterize_soft", soft_only, "soft_ids")):
+        if not torch.equal(got, plain[key]):
+            fail(f"dense_raster: {name}: {int((got != plain[key]).sum())} ids differ from "
+                 f"the plain version's")
+    if not torch.allclose(full["soft_sum"], plain["soft_sum"], rtol=1e-5, atol=1e-6):
+        fail(f"dense_raster: soft_sum beyond rtol 1e-5 of the plain version's")
+    rec["soft_sum_max_abs_err"] = float((full["soft_sum"] - plain["soft_sum"]).abs().max())
+    del plain, hard_p, soft_p, ssum_p
+
+    t0 = time.perf_counter()
+    grad_cpu = alpha_grad(full["soft_ids"].cpu(), full["soft_sum"].cpu(), screen.cpu(), g.cpu())
+    rec["cpu_grad_s"] = time.perf_counter() - t0
+    scale = float(grad_cpu.abs().max())
+    rec["grad_vs_cpu_max_abs"] = float((grad.cpu() - grad_cpu).abs().max())
+    rec["grad_max_abs"] = scale
+    if not (scale > 0 and rec["grad_vs_cpu_max_abs"] <= 1e-4 * scale):
+        fail(f"dense_raster: soft_alpha_fast's gradient card vs CPU "
+             f"{rec['grad_vs_cpu_max_abs']} of {scale}")
+    vk = screen.detach().requires_grad_(True)
+    ak = R.soft_alpha_fast_pack(out["soft_sum"], b, vk, assets.sub_topology.corners, rcfg)
+    (grad_k2,) = torch.autograd.grad((ak * R.gather_tiles(g, act, rcfg)).sum(), vk)
+    diff = (grad_k2 - grad).abs()
+    rec["k2_vs_k_ids"] = {"max_abs": float(diff.max()), "max_rel": float(diff.max()) / scale,
+                          "verts_beyond_1e-4": int((diff.amax(-1) > 1e-4 * scale).sum()),
+                          "pixels_with_k_ids": int((full["soft_ids"][..., -1] >= 0).sum())}
+    rec["raster_full_ms"] = cuda_ms(lambda: R.raster_full(screen, faces, rcfg), 5)
+    rec["raster_compact_ms"] = cuda_ms(lambda: R.raster_compact(screen, faces, rcfg), 5)
+    rec["soft_alpha_fast_grad_ms"] = cuda_ms(
+        lambda: alpha_grad(full["soft_ids"], full["soft_sum"], screen, g), 3)
+    emit(rec)
 
 
 def eval_rcfg(rcfg):
@@ -2313,6 +2586,9 @@ def main() -> int:
     fit = phase_fit(dev, seq)
     phase_turntables(dev, seq, fit)
     phase_crop(dev, seq)
+    # The dense raster API and the eval as one CUDA graph.
+    phase_dense_raster(dev, seq)
+    phase_eval_program(dev)
     # Several sequences and ranks, and the async checkpointer.
     phase_batch_fit(dev, seq)
     phase_mesh_fit(dev, seq, fit)

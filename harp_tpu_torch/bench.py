@@ -405,7 +405,8 @@ def run_protocol() -> dict:
     --synthetic --n-frames 36 with every other flag at its default (301
     epochs, 448^2, B18, shadow, VGG bf16 with the cached GT, --epoch-scan
     10, the turntables), in this process, on the card. The record: the fit
-    and eval walls, the turntables' seconds, IoU / L1 / MS-SSIM and their
+    and eval walls, the eval program's (eval_program_s, its capture
+    eval_capture_s), the turntables' seconds, IoU / L1 / MS-SSIM and their
     gaps to harp_tpu's recorded protocol, the segments, the overflow
     counters, and "failures": each limit missed (PROTOCOL_REF's, every
     segment a graph, every counter 0)."""
@@ -431,7 +432,8 @@ def run_protocol() -> dict:
         if not abs(stats[k] - ref) <= tol:
             failures.append(f"{k} {stats[k]} is beyond {tol} of harp_tpu's {ref}")
     return {"argv": argv[:-2], "cli_wall_s": wall,
-            **{k: stats.get(k) for k in ("fit_wall_s", "eval_wall_s", "eval_turntables_s",
+            **{k: stats.get(k) for k in ("fit_wall_s", "eval_wall_s", "eval_program_s",
+                                         "eval_capture_s", "eval_turntables_s",
                                          "Silhouette IoU", "L1", "MS_SSIM", "LPIPS_proxy",
                                          "final_loss")},
             "harp_tpu_recorded": {k: ref for k, (ref, _) in PROTOCOL_REF.items()},

@@ -11,7 +11,10 @@
 - align_w_scale / EvalUtil / procrustes_joint_error: numpy and scipy.
 
 Images are (B, H, W, C) tensors, as in harp_tpu. The filters are cuDNN
-convolutions on the card: evaluate_sequence runs them with TF32 off.
+convolutions on the card: evaluate_sequence runs them with TF32 off. The
+per-frame metrics take their constant tables through device.constant, so
+that the eval program's CUDA graph (fit/evaluate.make_eval_program) holds
+no copy from the host.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from harp_tpu_torch.device import constant
 from harp_tpu_torch.losses.perceptual import Vgg16Features
 
 
@@ -64,7 +68,7 @@ def _filter2d(img: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
 
 def _ssim_parts(x, y, data_range=1.0, win_size=11, sigma=1.5, k1=0.01, k2=0.03):
     """x, y (B, C, H, W) -> per-frame (ssim, cs) means."""
-    win = torch.as_tensor(_gaussian_window(win_size, sigma), device=x.device)
+    win = constant(_gaussian_window(win_size, sigma), x.device)
     c1 = (k1 * data_range) ** 2
     c2 = (k2 * data_range) ** 2
     mu_x = _filter2d(x, win)
@@ -107,7 +111,7 @@ def ms_ssim_per_frame(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
             x = F.avg_pool2d(x, 2, 2)
             y = F.avg_pool2d(y, 2, 2)
     vals = torch.relu(torch.stack(vals))  # (L, B)
-    w = torch.as_tensor(np.asarray(weights, np.float32), device=vals.device)
+    w = constant(np.asarray(weights, np.float32), vals.device)
     return torch.prod(vals ** w[:, None], dim=0)
 
 

@@ -238,9 +238,10 @@ def _run(args, mesh=None) -> dict | None:
 
     from harp_tpu_torch.device import resolve_device
     from harp_tpu_torch.fit.driver import fit_sequence
-    from harp_tpu_torch.fit.evaluate import evaluate_sequence
+    from harp_tpu_torch.fit.evaluate import evaluate_sequence, make_eval_program
     from harp_tpu_torch.fit.params import init_params
     from harp_tpu_torch.fit.resume import load_fit_checkpoint, prepare_resume_params
+    from harp_tpu_torch.losses.perceptual import Vgg16Features
     from harp_tpu_torch.utils.io import save_result
     from harp_tpu_torch.utils.profiling import Timer
 
@@ -268,6 +269,11 @@ def _run(args, mesh=None) -> dict | None:
     if val is not None:
         val_kwargs = dict(val_data=val[1], val_params={
             k: torch.tensor(v, device=dev) for k, v in val[0].items()})
+    eval_prog = eval_vgg = None
+    if lead:  # the fused eval pass of the fitted sequence, as harp_tpu's CLI builds it
+        eval_vgg = Vgg16Features.create(weights_path=config.vgg_weights or None, device=dev)
+        eval_prog, _ = make_eval_program(config, assets, data, rcfg, eval_vgg, device=dev,
+                                         extras=extras)
 
     with Timer(dev) as t_fit, torch.autograd.set_detect_anomaly(args.debug_nans,
                                                                 check_nan=True):
@@ -280,7 +286,9 @@ def _run(args, mesh=None) -> dict | None:
     save_result(params, config.base_output_dir, test=config.known_appearance)
     with Timer(dev) as t_eval:
         stats = evaluate_sequence(config, assets, data, params, aux, rcfg=rcfg, device=dev,
-                                  extras=extras, turntables=args.turntables)
+                                  extras=extras, turntables=args.turntables, vgg=eval_vgg,
+                                  eval_program=eval_prog)
+        eval_prog.close()
         if val is not None:
             # The validation sequences: the fitted shared appearance with
             # their own preprocessing pose and camera.

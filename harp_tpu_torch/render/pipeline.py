@@ -16,7 +16,8 @@ from harp_tpu_torch.render import camera as cam_mod
 from harp_tpu_torch.render import shading
 from harp_tpu_torch.render.rasterizer import (
     RasterConfig, add_overflow, barycentrics_of, barycentrics_of_at, face_row_order,
-    get_hard_ids, raster_compact, scatter_tiles, soft_alpha_fast_pack, tile_pixel_coords,
+    get_hard_ids, raster_compact, raster_full, scatter_tiles, soft_alpha_fast_pack,
+    tile_pixel_coords,
 )
 
 
@@ -64,7 +65,13 @@ def render_silhouette(verts, assets, R, T, config, raster_cfg: RasterConfig,
                       counters: dict | None = None):
     """Soft silhouette alpha (B, H, W): the compact alpha (forward from the
     coverage log-sum, backward K2) scattered to the image, 0 elsewhere.
-    counters: see rasterizer.add_overflow (also for the renders below)."""
+    counters: see rasterizer.add_overflow (also for the renders below).
+
+    The forward is harp_tpu's. The gradient is not quite: harp_tpu's
+    render_silhouette differentiates through the first K recorded ids
+    (soft_alpha_fast), K2 through every within-blur face, so the two part
+    at pixels with more than K within-blur faces (rasterizer.soft_alpha_fast
+    is harp_tpu's)."""
     screen = cam_mod.screen_from_world(verts, R, T, config.focal_length, config.img_size)
     out = raster_compact(screen, assets.render_faces, raster_cfg, need_hard=False)
     add_overflow(counters, out)
@@ -109,11 +116,30 @@ def _shade_pixels(verts, ids, bary, mask, assets, R, T, config, texture,
                   diffuse_color, specular_color, vis_map=vis_map, shininess=shininess)
 
 
-def render_rgb(verts, assets, R, T, config, raster_cfg: RasterConfig,
-               texture, normal_map, light_positions, counters: dict | None = None):
-    """Phong colour render without shadows (B, H, W, 3)."""
+def raster_camera_view(verts, assets, R, T, config, raster_cfg: RasterConfig,
+                       need_soft=True, need_hard=True):
+    """One full-image camera rasterization shared by the silhouette and the
+    colour renders: (screen, rasterizer.raster_full's dict)."""
     screen = cam_mod.screen_from_world(verts, R, T, config.focal_length, config.img_size)
-    ids = get_hard_ids(screen, assets.render_faces, raster_cfg, counters)
+    return screen, raster_full(screen, assets.render_faces, raster_cfg, need_soft, need_hard)
+
+
+def _camera_hard_ids(verts, assets, R, T, config, raster_cfg, counters, precomputed):
+    """(screen, hard ids): precomputed (from raster_camera_view, whose
+    counters its caller holds), else a depth-only pass of its own."""
+    if precomputed is not None:
+        return precomputed
+    screen = cam_mod.screen_from_world(verts, R, T, config.focal_length, config.img_size)
+    return screen, get_hard_ids(screen, assets.render_faces, raster_cfg, counters)
+
+
+def render_rgb(verts, assets, R, T, config, raster_cfg: RasterConfig,
+               texture, normal_map, light_positions, counters: dict | None = None,
+               precomputed=None):
+    """Phong colour render without shadows (B, H, W, 3). precomputed:
+    (screen, hard_ids) from raster_camera_view, to share its pass."""
+    screen, ids = _camera_hard_ids(verts, assets, R, T, config, raster_cfg, counters,
+                                   precomputed)
     bary, _, mask = barycentrics_of(ids, screen, assets.render_faces, raster_cfg)
     return _shade_pixels(verts, ids, bary, mask, assets, R, T, config, texture,
                          normal_map, light_positions, config.ambient_color,
@@ -122,13 +148,14 @@ def render_rgb(verts, assets, R, T, config, raster_cfg: RasterConfig,
 
 
 def render_normal(verts, assets, R, T, config, raster_cfg: RasterConfig,
-                  normal_map=None, counters: dict | None = None):
+                  normal_map=None, counters: dict | None = None, precomputed=None):
     """Normals as colours (B, H, W, 3), SoftPhongNormalShader semantics:
     interpolated (and, with a normal map, normal-mapped) normals, y and z
-    negated, mapped to [0, 1], over the background."""
-    screen = cam_mod.screen_from_world(verts, R, T, config.focal_length, config.img_size)
+    negated, mapped to [0, 1], over the background. precomputed: as in
+    render_rgb."""
     faces = assets.render_faces
-    ids = get_hard_ids(screen, faces, raster_cfg, counters)
+    screen, ids = _camera_hard_ids(verts, assets, R, T, config, raster_cfg, counters,
+                                   precomputed)
     bary, _, mask = barycentrics_of(ids, screen, faces, raster_cfg)
     pixel_normals = shading.interpolate_face_vertex_attrs(
         vertex_normals(verts, assets.sub_topology), faces, ids, bary)

@@ -388,8 +388,15 @@ def soft_alpha_fast_pack(soft_sum, bins, verts_px, corners, cfg: RasterConfig):
 
 
 # ---------------------------------------------------------------------------
-# Full-image interface (the synthetic ground-truth render)
+# Full-image interface: the dense API (harp_tpu's rasterize_soft / hard,
+# get_ids, raster_full, soft_alpha_*). Each is the compact pass (K1) with
+# its tiles scattered to the image; harp_tpu's private helpers (_bin_faces,
+# _bin_faces_dense, _gather_tile_ids, _use_pallas,
+# _pallas_pregather_too_large) have no counterpart: the port bins through
+# bin_pairs and picks the kernel or its plain version by the tensor's device.
 # ---------------------------------------------------------------------------
+
+OVERFLOW = ("bin_overflow", "active_overflow", "span_overflow")
 
 
 def _pixel_centers(cfg: RasterConfig, device):
@@ -404,21 +411,152 @@ def add_overflow(counters: dict | None, out: dict, prefix: str = "") -> None:
     truncated; its callers read these to refuse such a render."""
     if counters is None:
         return
-    for k in ("bin_overflow", "active_overflow", "span_overflow"):
+    for k in OVERFLOW:
         counters[prefix + k] = counters.get(prefix + k, 0) + out[k].sum()
+
+
+def raster_full(verts_px, faces, cfg: RasterConfig, need_soft: bool = True,
+                need_hard: bool = True) -> dict:
+    """Full-image rasterization (harp_tpu raster_full): a dict with soft_ids
+    (B, H, W, K) int32 (-1 empty), soft_sum (B, H, W) f32 (0 off the active
+    tiles), hard_ids (B, H, W) int32 (-1 background), each when requested,
+    and the three overflow counters (B,). raster_compact scattered to the
+    image; need_soft=False runs K1's depth-only mode."""
+    out = raster_compact(verts_px, faces, cfg, need_soft=need_soft, need_hard=need_hard)
+    act = out["act_idx"]
+    full = {k: out[k] for k in OVERFLOW}
+    if need_soft:
+        full["soft_ids"] = scatter_tiles(out["soft_ids"], act, cfg, -1)
+        full["soft_sum"] = scatter_tiles(out["soft_sum"], act, cfg, 0.0)
+    if need_hard:
+        full["hard_ids"] = scatter_tiles(out["hard_ids"], act, cfg, -1)
+    return full
+
+
+def get_ids(verts_px, faces, cfg: RasterConfig, need_soft: bool = True,
+            need_hard: bool = True):
+    """(soft_ids (B, H, W, K) | None, hard_ids (B, H, W) | None)."""
+    out = raster_full(verts_px, faces, cfg, need_soft, need_hard)
+    return out.get("soft_ids"), out.get("hard_ids")
+
+
+def rasterize_soft(verts_px, faces, cfg: RasterConfig) -> torch.Tensor:
+    """(B, H, W, K) int32: the first K faces (bin-list order, i.e. ascending
+    face id) within the blur radius of each pixel; -1 for empty slots."""
+    return raster_full(verts_px, faces, cfg, True, False)["soft_ids"]
+
+
+def rasterize_hard(verts_px, faces, cfg: RasterConfig) -> torch.Tensor:
+    """(B, H, W) int32 id of the nearest covering face, -1 for background."""
+    return raster_full(verts_px, faces, cfg, False, True)["hard_ids"]
+
+
+def rasterize(verts_px, faces, cfg: RasterConfig):
+    """(soft_ids, hard_ids) from one pass."""
+    return get_ids(verts_px, faces, cfg, True, True)
 
 
 def get_hard_ids(verts_px, faces, cfg: RasterConfig, counters: dict | None = None,
                  prefix: str = "") -> torch.Tensor:
-    """Full-image hard ids (B, H, W), -1 for background: K1's depth-only
-    pass scattered back (inactive tiles are background). counters: see
-    add_overflow."""
-    out = raster_compact(verts_px, faces, cfg, need_soft=False)
+    """rasterize_hard with its overflow counters added to `counters` (see
+    add_overflow)."""
+    out = raster_full(verts_px, faces, cfg, need_soft=False)
     add_overflow(counters, out, prefix)
-    return scatter_tiles(out["hard_ids"], out["act_idx"], cfg, -1)
+    return out["hard_ids"]
 
 
 def barycentrics_of(ids, verts_px, faces, cfg: RasterConfig):
     """Full-image (bary (B, H, W, 3), z (B, H, W), mask) for hard ids."""
     px, py = _pixel_centers(cfg, verts_px.device)
     return barycentrics_of_at(ids, verts_px, faces, cfg, px, py)
+
+
+def soft_alpha_from_ids_at(ids, verts_px, faces, cfg: RasterConfig, px, py):
+    """Differentiable silhouette alpha 1 - prod_k (1 - sigmoid(-d_k / sigma))
+    over the K recorded faces `ids` (..., K) at pixel centres px / py
+    (broadcastable against ids' leading dims: (B, A, P) compact tiles, or
+    (H, W) for the full image). harp_tpu's operations in its order: d the
+    signed squared distance in NDC^2, a face counted when listed, valid
+    and d <= blur_radius, its log(1 - p) = -softplus(-d / sigma) summed
+    over k in order. The face-row gather's backward is the fixed-order
+    segment sum."""
+    fv = _face_rows(verts_px, faces, ids)  # (..., K, 3, 3)
+    g = face_pixel_geometry(fv, px[..., None], py[..., None], cfg)
+    e01, e12, e20 = g["edges"]
+    d2 = torch.minimum(torch.minimum(e01, e12), e20)
+    d = torch.where(g["inside"], -d2, d2) * f32(cfg.ndc_scale**2)
+    ok = (ids >= 0) & g["valid"] & (d <= f32(cfg.blur_radius))
+    contrib = torch.where(ok, -softplus(-d / f32(cfg.sigma)), 0.0)
+    acc = contrib[..., 0]
+    for k in range(1, ids.shape[-1]):
+        acc = acc + contrib[..., k]
+    return 1.0 - torch.exp(acc)
+
+
+def soft_alpha_from_ids(ids, verts_px, faces, cfg: RasterConfig):
+    """soft_alpha_from_ids_at on the full image: ids (B, H, W, K) from
+    rasterize_soft -> alpha (B, H, W)."""
+    px, py = _pixel_centers(cfg, verts_px.device)
+    return soft_alpha_from_ids_at(ids, verts_px, faces, cfg, px, py)
+
+
+class _SoftAlphaIds(torch.autograd.Function):
+    """Alpha with the forward taken from the coverage log-sum and the
+    backward of soft_alpha_from_ids_at over the K recorded ids."""
+
+    @staticmethod
+    def forward(ctx, verts_px, ids, soft_sum, faces, cfg, px, py):
+        ctx.save_for_backward(verts_px.detach(), ids, px, py)
+        ctx.faces, ctx.cfg = faces, cfg
+        return 1.0 - torch.exp(soft_sum)
+
+    @staticmethod
+    def backward(ctx, g):
+        verts_px, ids, px, py = ctx.saved_tensors
+        with torch.enable_grad():
+            v = verts_px.detach().requires_grad_(True)
+            alpha = soft_alpha_from_ids_at(ids, v, ctx.faces, ctx.cfg, px, py)
+            (dv,) = torch.autograd.grad(alpha, v, g)
+        return dv, None, None, None, None, None, None
+
+
+def soft_alpha_fast_at(ids, soft_sum, verts_px, faces, cfg: RasterConfig, px, py):
+    """Compact silhouette alpha (B, A, P): forward 1 - exp(soft_sum), the
+    backward soft_alpha_from_ids_at's over the K ids (harp_tpu's
+    K-truncated gradient; soft_alpha_fast_pack's K2 takes every
+    within-blur face, and the two differ where a pixel has more than K)."""
+    return _SoftAlphaIds.apply(verts_px, ids.detach(), soft_sum.detach(), faces, cfg,
+                               px, py)
+
+
+def soft_alpha_fast(ids, soft_sum, verts_px, faces, cfg: RasterConfig):
+    """soft_alpha_fast_at on the full image: ids (B, H, W, K) and soft_sum
+    (B, H, W) from raster_full -> alpha (B, H, W)."""
+    px, py = _pixel_centers(cfg, verts_px.device)
+    return soft_alpha_fast_at(ids, soft_sum, verts_px, faces, cfg, px, py)
+
+
+def rasterize_brute(verts_px, faces, cfg: RasterConfig):
+    """All-pairs reference rasterizer (tests; O(F * H * W)): (soft_ids
+    (B, H, W, K), hard_ids (B, H, W)) as rasterize gives them, soft ids the
+    first K hits in face-id order, hard ids the nearest inside face (the
+    lower id on ties)."""
+    verts_px = verts_px.detach().float()
+    f = as_faces(faces, verts_px.device)
+    F, K = f.shape[0], cfg.faces_per_pixel
+    fv = verts_px[:, f][:, :, None, None]  # (B, F, 1, 1, 3, 3)
+    px, py = _pixel_centers(cfg, verts_px.device)
+    g = face_pixel_geometry(fv, px, py, cfg)  # (B, F, H, W)
+    e01, e12, e20 = g["edges"]
+    d2 = torch.minimum(torch.minimum(e01, e12), e20)
+    hit = g["valid"] & (torch.where(g["inside"], -d2, d2) <= f32(cfg.blur_px2))
+    fid = torch.arange(F, device=verts_px.device).reshape(1, F, 1, 1)
+    key = torch.where(hit, fid, F).movedim(1, -1)  # (B, H, W, F)
+    if F < K:
+        key = torch.nn.functional.pad(key, (0, K - F), value=F)
+    first = torch.sort(key, dim=-1).values[..., :K]
+    soft_ids = torch.where(first < F, first, -1).to(torch.int32)
+    zc = torch.where(g["inside"], g["z"], float("inf"))
+    zmin, hard = zc.min(dim=1)
+    hard_ids = torch.where(torch.isinf(zmin), -1, hard).to(torch.int32)
+    return soft_ids, hard_ids

@@ -753,3 +753,93 @@ def test_jpeg_frame_crop_on_the_card_is_within_the_decode_bound(cuda, tmp_path):
     assert rgb.is_cuda and rgb.shape == (48, 48, 3)
     assert torch.equal(mask.cpu(), want_mask) and bool((want_mask == 255).all())
     assert float((rgb.cpu().float() - want_rgb.float()).abs().mean()) / 255.0 < 0.015
+
+
+def _eval_scene(cuda):
+    """4 frames of the light hand at 64^2 with self-shadow, its data and two
+    parameter sets (the fit's initial ones, the GT ones)."""
+    from harp_tpu_torch.assets import build_synthetic_assets
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+    from harp_tpu_torch.fit.driver import FitData
+    from harp_tpu_torch.fit.params import init_params
+
+    assets = build_synthetic_assets(uv_size=32, density="light")
+    config = HarpConfig(img_size=64, focal_length=2000.0 * 64 / 448, texture_size=32,
+                        self_shadow=True, batch_size=2)
+    rcfg = RasterConfig(image_size=64, tile=16, cap=1024, span_tiles=4)
+    images, masks, masks_er, gt, init = make_synthetic_sequence(assets, config, rcfg,
+                                                                n_frames=4, device=cuda)
+    p_init, _ = init_params(init, assets, config, device=cuda)
+    p_gt = {k: (gt[k] if k in gt and gt[k].shape == v.shape else v).detach().clone()
+            for k, v in p_init.items()}
+    return assets, config, rcfg, FitData(images, masks, masks_er), p_init, p_gt
+
+
+def _same_eval(a, b) -> bool:
+    return (all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
+            and all(torch.equal(a[6][k], b[6][k]) for k in a[6]))
+
+
+def test_eval_program_graph_is_the_eager_body_bit_for_bit(cuda):
+    """make_eval_program's CUDA graph (two groups of two frames) gives the
+    same bits as the same program run eagerly, and replays the same bits."""
+    from harp_tpu_torch.fit.evaluate import make_eval_program
+
+    assets, config, rcfg, data, p_init, _ = _eval_scene(cuda)
+    kw = dict(render_batch=2, device=cuda)
+    prog, g = make_eval_program(config, assets, data, rcfg, **kw)
+    eager, _ = make_eval_program(config, assets, data, rcfg, graph=False, **kw)
+    want = eager(p_init, data.images, data.masks)
+    got = prog(p_init, data.images, data.masks)
+    assert prog.graph is not None and prog.captures == 1 and prog.capture_s > 0
+    assert g == 2 and got[4].shape == (4, 64, 256, 3) and got[4].is_cuda
+    assert _same_eval(got, want)
+    assert _same_eval(prog(p_init, data.images, data.masks), want)
+    assert prog.captures == 1 and not any(int(v) for v in got[6].values())
+    prog.close()
+
+
+def test_eval_program_second_call_copies_in_on_the_card(cuda):
+    """A replay with other parameters and other images computes from
+    those: what the eager body gives for them, not the captured tensors'."""
+    from harp_tpu_torch.fit.evaluate import make_eval_program
+
+    assets, config, rcfg, data, p_init, p_gt = _eval_scene(cuda)
+    kw = dict(render_batch=2, device=cuda)
+    prog, _ = make_eval_program(config, assets, data, rcfg, **kw)
+    eager, _ = make_eval_program(config, assets, data, rcfg, graph=False, **kw)
+    first = prog(p_init, data.images, data.masks)
+    images, masks = data.images.flip(0).contiguous(), data.masks.flip(0).contiguous()
+    second = prog(p_gt, images, masks)
+    assert _same_eval(second, eager(p_gt, images, masks))
+    assert not torch.equal(first[1], second[1])
+    prog.close()
+
+
+@pytest.mark.parametrize("scene", ["sparse", "busy", "dense"])
+def test_dense_raster_api_on_the_card_equals_its_plain_version(cuda, scene):
+    """raster_full / get_ids / rasterize_* through K1 on the card: the ids
+    of the CPU's plain version, soft_sum within rtol 1e-5, and
+    soft_alpha_fast's gradient within 1e-4 of the CPU's largest entry."""
+    from harp_tpu_torch.render import rasterizer as R
+
+    make, cap = SCENES[scene]
+    cfg = RasterConfig(image_size=32, tile=16, cap=cap, faces_per_pixel=8, active_fraction=0.75)
+    verts, faces = make(cfg)
+    v_card, v_cpu = torch.from_numpy(verts).to(cuda), torch.from_numpy(verts)
+    card, cpu = R.raster_full(v_card, faces, cfg), R.raster_full(v_cpu, faces, cfg)
+    for k in ("soft_ids", "hard_ids") + R.OVERFLOW:
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    torch.testing.assert_close(card["soft_sum"].cpu(), cpu["soft_sum"], rtol=1e-5, atol=1e-6)
+    assert torch.equal(R.rasterize_hard(v_card, faces, cfg).cpu(), cpu["hard_ids"])
+    soft, hard = R.get_ids(v_card, faces, cfg)
+    assert torch.equal(soft.cpu(), cpu["soft_ids"]) and torch.equal(hard.cpu(), cpu["hard_ids"])
+    g = torch.from_numpy(np.random.RandomState(0).normal(size=cpu["soft_sum"].shape)
+                         .astype(np.float32))
+    grads = []
+    for v, out, gg in ((v_card, card, g.to(cuda)), (v_cpu, cpu, g)):
+        v = v.clone().requires_grad_(True)
+        alpha = R.soft_alpha_fast(out["soft_ids"], out["soft_sum"], v, faces, cfg)
+        grads.append(torch.autograd.grad((alpha * gg).sum(), v)[0].cpu())
+    assert (grads[0] - grads[1]).abs().max() <= 1e-4 * grads[1].abs().max()
