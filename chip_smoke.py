@@ -16,9 +16,11 @@ parameters bit for bit; time segment_sum at every call site of one
 stage-2 step; time the VGG step in float32 with TF32 off and on; run
 fit_sequence (stages 2 / 2 / 2) twice from one seed, which must give the
 same bits, and evaluate_sequence on it; the eval's turntables and light
-sweep on the fitted parameters (turntables: files, two evals the same
-bytes, views in groups the same bits as one at a time, card against CPU,
-K1 depth-only at their shape, timed against its bound: turntable_kernels);
+sweep on the fitted parameters (turntables: harp_tpu's JPEG files, the
+host encoder's bytes of the card's views, two evals the same bytes, views
+in groups the same bits as one at a time, card against CPU; the writing
+walls: image_writing; K1 depth-only at their shape, timed against its
+bound: turntable_kernels);
 the Unscreen crop of eight 1920 x 1080 RGBA frames on the card against the
 CPU, its JPEGs decoded through data/dataset.py (crop); the dense raster API
 (raster_full, get_ids, rasterize_soft / hard, soft_alpha_fast) at the
@@ -49,11 +51,11 @@ on two gloo ranks sharing the card, against the card's unsharded fit
 (mesh_fit); a fit killed after its orbax checkpoint and resumed, the same
 bits as the unbroken fit, with the checkpointer's retention (orbax_resume).
 Then the epoch scan: fit_sequence(epoch_scan=2) as CUDA graphs of the step,
-twice, eagerly under anomaly mode, on a one-rank NCCL mesh (all the same
-bits) and as the per-step loop (harp_tpu's scan-against-loop tolerance),
-with per stage the replayed and eager step times and a profiled replayed
-segment's kernels by name (epoch_scan); over two NCCL ranks on two cards
-where there are two (nccl_scan); the protocol through the CLI at its
+twice, eagerly under --debug-nans' checks, on a one-rank NCCL mesh (all
+the same bits) and as the per-step loop (harp_tpu's scan-against-loop
+tolerance), with per stage the replayed and eager step times and the
+captured graph's kernels by name (epoch_scan); over two NCCL ranks on two
+cards where there are two (nccl_scan); the protocol through the CLI at its
 defaults, held to harp_tpu's recorded quality (protocol); graft_entry's
 forward on the card against the CPU (graft_entry); the port's bench
 (harp_tpu_torch.bench: bench.py's four variants and the replayed step,
@@ -80,7 +82,7 @@ import numpy as np
 
 from harp_tpu_torch.bench import ARM_BUDGET, HAND_BUDGET, IMG, KERNEL_NAMES, TEX
 from harp_tpu_torch.utils.profiling import (
-    bound_ms, cuda_ms, device_record, nbytes, profile_window,
+    bound_ms, cuda_ms, device_record, graph_kernel_counts, nbytes, profile_window,
 )
 
 # FP32 operations of the raster kernels. bound_ms_binned counts them as the
@@ -806,6 +808,13 @@ def phase_pcf_rounding(dev, seq) -> None:
              + "; ".join(failures))
 
 
+def _composites(img_dir: str) -> int:
+    """The eval's composites in img_dir, harp_tpu's names (%04d.jpg from
+    0000 up): their count, or -1 when the directory holds anything else."""
+    names = sorted(os.listdir(img_dir))
+    return len(names) if names == ["%04d.jpg" % i for i in range(len(names))] else -1
+
+
 def phase_fit(dev, seq) -> dict:
     """fit_sequence at full width (the flagship: 18 frames of 448^2,
     reference density, self-shadow, VGG in bf16 with the cached GT,
@@ -869,14 +878,14 @@ def phase_fit(dev, seq) -> dict:
                 eval_s = time.perf_counter() - t0
                 eval_launches, _ = eval_program_kernels(prog, params, data, read_launches(),
                                                         "fit")
-                n_png = len(os.listdir(os.path.join(out_dir, "rendered_after_opt")))
+                n_jpg = _composites(os.path.join(out_dir, "rendered_after_opt"))
                 out = {"epoch_losses": losses, "fit_s": fit_s, "launches": launches,
                        "overflow_max": counters, "eval": stats, "eval_s": eval_s,
                        "eval_launches": eval_launches, "eval_groups": B_STEP // g,
-                       "eval_pngs": n_png, "vgg_terms": [h.get("vgg") for h in history]}
+                       "eval_jpgs": n_jpg, "vgg_terms": [h.get("vgg") for h in history]}
                 if not (0.5 < stats["Silhouette IoU"] <= 1.0 and 0.0 < stats["MS_SSIM"] <= 1.0
-                        and np.isfinite(stats["L1"]) and n_png == B_STEP):
-                    fail(f"fit: eval {stats}, {n_png} composites")
+                        and np.isfinite(stats["L1"]) and n_jpg == B_STEP):
+                    fail(f"fit: eval {stats}, {n_jpg} composites %04d.jpg")
     spread = {k: float((finals[0][k] - finals[1][k]).abs().max()) for k in finals[0]}
     if any(spread.values()):
         fail(f"fit: two fits from one seed differ: {spread}")
@@ -890,19 +899,25 @@ def eval_program_kernels(prog, params, data, capture_launches: dict, phase: str)
     """The kernels of one replay of the eval program `prog` (captured by
     the call whose launch counts are capture_launches: its warm-up group
     and the captured groups, the host calls that recorded the kernels), by
-    name in torch.profiler's trace (a replay passes no launch counter).
-    Per group of frames K1 soft runs once (the silhouette) and K1 depth
-    three times (the shadow's light, the shadowed colour's camera, the
-    normal render's camera), K2 and K3 never (no backward); every kernel
-    runs in the replay as often as the capture recorded it, a group's
-    worth less the warm-up's. Returns (the counts, the profile_window
-    record of the replay); fails otherwise."""
+    name among the graph's kernel nodes (graph_kernel_counts: a replay
+    passes no launch counter, and a trace can lose records of the first
+    replay after the profiler starts). Per group of frames K1 soft runs
+    once (the silhouette) and K1 depth three times (the shadow's light,
+    the shadowed colour's camera, the normal render's camera), K2 and K3
+    never (no backward); every
+    kernel runs in the replay as often as the capture recorded it, a
+    group's worth less the warm-up's, and appears in a profiled replay's
+    trace. Returns (the counts, the profile_window record of the replay,
+    whose trace counts it keeps); fails otherwise."""
     from harp_tpu_torch.bench import KERNEL_NAMES
 
     groups = prog.n // prog.g
     prof = profile_window(lambda: prog(params, data.images, data.masks),
                           kernel_names=KERNEL_NAMES)
-    got = prof["kernel_counts"]
+    got, _ = graph_kernel_counts(prog.graph, KERNEL_NAMES)
+    if any(n and not prof["kernel_counts"][k] for k, n in got.items()):
+        fail(f"{phase}: kernels of the eval program's graph absent from the trace of its "
+             f"replay: {prof['kernel_counts']}, graph {got}")
     want = {"raster_ids_soft": groups, "raster_ids_depth": 3 * groups, "coverage_grad": 0,
             "pcf_scatter": 0}
     recorded = {k: capture_launches.get(k, 0) * groups // (groups + 1) for k in got}
@@ -947,27 +962,33 @@ def phase_turntables(dev, seq, fit: dict) -> None:
     """The eval's turntables on the fit phase's parameters at 448^2 (every
     tile rasterized, 784 a view, as the eval does): evaluate_sequence with
     turntables=True twice and without once. Each run's files (72 RGB, 72
-    normal, 72 combined and 40 light-sweep PNGs and four GIFs) are there,
-    and the two runs' are the same bytes; the overflow counters are 0 (a
+    normal, 72 combined and 40 light-sweep JPEGs at harp_tpu's names and
+    four GIFs) are there, and the two runs' are the same bytes; each frame
+    file is the host encoder's bytes (native.jpeg_bytes, Pillow's) of the
+    card's view, as the CPU writes that frame, and each combined frame the
+    bytes of its two decoded views side by side; the overflow counters are 0 (a
     group whose turned mesh overflows the tile capacity is rendered again
     with a wider one: turntable_rerenders); each eval replays phase fit's
     captured eval program, which launches nothing from the host (its
     kernels are counted by name in phase fit), so the turntables' K1
     depth-only launches are the eval's without them (none) plus one a group
     of eight views (2 x 9 + 5 = 23) plus the rerenders, and nothing else of
-    the step's kernels; the RGB and normal turntables rendered eight views at a time
-    are the same bits as one view at a time; views 0, 35, h_0, h_35 and
+    the step's kernels; the RGB and normal turntables rendered eight views
+    at a time are the same bits as one view at a time; views 0, 35, h_0, h_35 and
     lights 0 and 39 agree with the CPU's plain versions within the test's
     bound (tests/test_torch_turntables.py: at most 0.5% of a view's pixels
     with other codes). Then K1 depth-only at the turntable's shape (views
     0-7, A = 784, a capacity that truncates nothing) against its plain
-    version, timed, with its bound."""
+    version, timed, with its bound. Line image_writing: the host walls of
+    writing the eval's composites and, for the turntables' views, their
+    JPEGs, the combination and the four GIFs."""
     import dataclasses
     import tempfile
 
     import torch
     from harp_tpu_torch.fit.driver import FitData
     from harp_tpu_torch.fit.evaluate import evaluate_sequence
+    from harp_tpu_torch.native import jpeg_bytes
     from harp_tpu_torch.fit.params import init_params
     from harp_tpu_torch.render import pipeline
     from harp_tpu_torch.render.kernels import raster_kernel as rk
@@ -979,11 +1000,12 @@ def phase_turntables(dev, seq, fit: dict) -> None:
     prog = fit["eval_program"]  # captured by phase fit: each eval here only replays it
     data = FitData(seq["images"], seq["masks"], seq["masks_er"])
     _, aux = init_params(seq["init"], assets, config, device=dev)
-    subs = {"render_360": [f"{p}{i:04d}.png" for p in ("", "h_") for i in range(TT_VIEWS)],
-            "render_360_normal": [f"{p}{i:04d}.png" for p in ("", "h_") for i in range(TT_VIEWS)],
-            "render_360_combine": [f"{i:04d}.png" for i in range(2 * TT_VIEWS)],
-            "render_360_light": [f"{i:04d}.png" for i in range(TT_LIGHTS)]}
+    subs = {"render_360": [f"{p}{i:04d}.jpg" for p in ("", "h_") for i in range(TT_VIEWS)],
+            "render_360_normal": [f"{p}{i:04d}.jpg" for p in ("", "h_") for i in range(TT_VIEWS)],
+            "render_360_combine": [f"{i:04d}.jpg" for i in range(2 * TT_VIEWS)],
+            "render_360_light": [f"{i:04d}.jpg" for i in range(TT_LIGHTS)]}
     rec = {"phase": "turntables"}
+    args = (params, 0, assets, config, eval_rcfg(seq["rcfg"]))
     with tempfile.TemporaryDirectory() as tmp:
         runs = []
         for name, turn in (("plain", False), ("a", True), ("b", True)):
@@ -996,7 +1018,7 @@ def phase_turntables(dev, seq, fit: dict) -> None:
                                       eval_program=prog)
             torch.cuda.synchronize()
             runs.append((out_dir, stats, read_launches(), time.perf_counter() - t0))
-        (_, _, base, base_s), (a_dir, stats, launches, eval_s), (b_dir, *_) = runs
+        (_, base_stats, base, base_s), (a_dir, stats, launches, eval_s), (b_dir, *_) = runs
         if any(base.values()):
             fail(f"turntables: the eval replayed from its graph launched {base} from the host")
         files = {}
@@ -1025,28 +1047,64 @@ def phase_turntables(dev, seq, fit: dict) -> None:
         if extra != want:
             fail(f"turntables: launches beyond the eval's {extra}, expected {want}")
 
-        read = {sub: np.stack([viz._read_rgb(os.path.join(a_dir, sub, subs[sub][i]))
-                               for i in idx])
-                for sub, idx in (("render_360", TT_HELD), ("render_360_normal", TT_HELD),
-                                 ("render_360_light", (0, TT_LIGHTS - 1)))}
-    args = (params, 0, assets, config, eval_rcfg(seq["rcfg"]))
-    for normal in (False, True):
-        one = viz.turntable_views(*args, normal, TT_VIEWS, chunk=1)
-        eight = viz.turntable_views(*args, normal, TT_VIEWS, chunk=8)
-        if not torch.equal(one, eight):
-            fail(f"turntables: {'normal' if normal else 'RGB'} views in groups of eight "
-                 f"differ from one at a time in {int((one != eight).any(-1).sum())} pixels")
-        held = eight[list(TT_HELD)].cpu().numpy()
-        written = read["render_360_normal" if normal else "render_360"]
-        if not np.array_equal(held, written):
-            fail("turntables: the written views are not turntable_views'")
+        # The card's views, and the files: the host encoder's bytes of them.
+        views = {}
+        for normal in (False, True):
+            one = viz.turntable_views(*args, normal, TT_VIEWS, chunk=1)
+            eight = viz.turntable_views(*args, normal, TT_VIEWS, chunk=8)
+            if not torch.equal(one, eight):
+                fail(f"turntables: {'normal' if normal else 'RGB'} views in groups of eight "
+                     f"differ from one at a time in {int((one != eight).any(-1).sum())} pixels")
+            views["render_360_normal" if normal else "render_360"] = eight.cpu().numpy()
+        views["render_360_light"] = viz.light_sweep_views(*args, num=TT_LIGHTS).cpu().numpy()
+        t0 = time.perf_counter()
+        other = [f"{sub}/{n}" for sub, v in views.items() for n, img in zip(subs[sub], v)
+                 if open(os.path.join(a_dir, sub, n), "rb").read() != jpeg_bytes(img, 75)]
+        for i, n in enumerate(subs["render_360_combine"]):
+            side = np.concatenate([viz.read_rgb(os.path.join(a_dir, sub, subs[sub][i]))
+                                   for sub in ("render_360", "render_360_normal")], 1)
+            if open(os.path.join(a_dir, "render_360_combine", n), "rb").read() != jpeg_bytes(
+                    side, 75):
+                other.append(f"render_360_combine/{n}")
+        rec["files_check_s"] = time.perf_counter() - t0
+        if other:
+            fail(f"turntables: files that are not the host encoder's bytes of the card's "
+                 f"views: {other[:5]} ({len(other)})")
+
+        # The host walls of writing what the eval writes, apart.
+        write = os.path.join(tmp, "write")
+        comps = prog(params, data.images, data.masks)[4].cpu().numpy()
+        t0 = time.perf_counter()
+        viz.save_images_parallel((c, os.path.join(write, "comp", "%04d.jpg" % f))
+                                 for f, c in enumerate(comps))
+        walls = {"eval_composites_jpg_s": time.perf_counter() - t0,
+                 "eval_composites_s": base_stats["eval_composites_s"]}
+        for sub in ("render_360", "render_360_normal", "render_360_light"):
+            t0 = time.perf_counter()
+            viz.save_images_parallel((img, os.path.join(write, sub, n))
+                                     for n, img in zip(subs[sub], views[sub]))
+            walls[sub + "_jpg_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            viz.save_gif(os.path.join(write, sub), os.path.join(write, sub, "out.gif"))
+            walls[sub + "_gif_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        viz.concat_image_dirs(os.path.join(write, "render_360"),
+                              os.path.join(write, "render_360_normal"),
+                              os.path.join(write, "render_360_combine"))
+        walls["render_360_combine_s"] = time.perf_counter() - t0
+        walls["turntables_writing_s"] = sum(v for k, v in walls.items()
+                                            if k.startswith("render_360"))
+    emit({"phase": "image_writing", "frames": int(comps.shape[0]),
+          "size": list(comps.shape[1:3]), **walls,
+          "eval_turntables_s": stats["eval_turntables_s"]})
     t0 = time.perf_counter()
     cpu = _turntable_cpu_views(params, assets, config, eval_rcfg(seq["rcfg"]))
     rec["cpu_views_s"] = time.perf_counter() - t0
     shares = {}
-    for key, sub in (("rgb", "render_360"), ("normal", "render_360_normal"),
-                     ("light", "render_360_light")):
-        shares[key] = [float((a != b).any(-1).mean()) for a, b in zip(read[sub], cpu[key])]
+    for key, sub, idx in (("rgb", "render_360", TT_HELD), ("normal", "render_360_normal", TT_HELD),
+                          ("light", "render_360_light", (0, TT_LIGHTS - 1))):
+        shares[key] = [float((a != b).any(-1).mean())
+                       for a, b in zip(views[sub][list(idx)], cpu[key])]
     rec["card_vs_cpu_pixel_share"] = shares
     if max(max(v) for v in shares.values()) > TT_SHARE:
         fail(f"turntables: card vs CPU beyond {TT_SHARE} of a view's pixels: {shares}")
@@ -1170,6 +1228,7 @@ def phase_eval_program(dev) -> None:
         fail(f"eval_program: metrics {metrics}")
     counts, prof = eval_program_kernels(prog, p_gt, data, capture_launches, "eval_program")
     rec["replay_kernels"] = counts
+    rec["replay_trace_kernels"] = prof["kernel_counts"]
     rec["replay_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
                                                   "device_busy_share", "top")}
     eprof = profile_window(lambda: eager(p_gt, images, masks))
@@ -1307,9 +1366,9 @@ def eval_rcfg(rcfg):
 
 
 def png_all_paeth(arr: np.ndarray) -> bytes:
-    """(H, W, C) uint8 as a PNG whose every row has filter 4 (Paeth): the
-    slowest rows of decode_png, which undoes them byte by byte (the port's
-    writer uses filter 0, other writers choose per row)."""
+    """(H, W, C) uint8 as a PNG whose every row has filter 4 (Paeth), the
+    filter whose undoing costs the most (the port's writer, as Pillow's,
+    chooses a filter per row)."""
     import struct
     import zlib
 
@@ -1346,14 +1405,17 @@ def phase_crop(dev, seq) -> None:
     quality 95), then crop_frame on the card and on the CPU: the same
     bits before encoding; the JPEGs decoded through data/dataset.py
     (load_sequences, with METRO pkls of the sequence's start) within a
-    mean of 0.015 of those arrays. Seconds per frame of the crop, and of
-    decode_png alone on a frame as the port writes it (filter 0) and with
-    every row Paeth-filtered (the slowest rows)."""
+    mean of 0.015 of those arrays; crop_unscreen_sequence on the CPU writes
+    the host encoder's bytes of the card's crops. Seconds per frame of the
+    crop, and of decode_png (the native decoder) and read_rgba alone on a
+    frame as the port writes it (Pillow's adaptive filters) and with every
+    row Paeth-filtered."""
     import tempfile
 
     import torch
     import torch.nn.functional as F
     from harp_tpu_torch.data.dataset import load_sequences, save_frame_pkl
+    from harp_tpu_torch.native import jpeg_bytes
     from harp_tpu_torch.preprocess.crop import crop_frame, crop_unscreen_sequence
     from harp_tpu_torch.utils import viz
 
@@ -1388,13 +1450,19 @@ def phase_crop(dev, seq) -> None:
         rec["write_png_s"] = time.perf_counter() - t0
         with open(os.path.join(un, "0000.png"), "rb") as f:
             data = f.read()
-        paeth = png_all_paeth(viz.decode_png(data))
-        rec["decode_png_s"] = {}
+        frame0 = viz.decode_png(data)
+        paeth = png_all_paeth(frame0)
+        rec["decode_png_s"], rec["read_rgba_s"] = {}, {}
         for name, blob in (("filter_0", data), ("filter_4", paeth)):
+            viz.decode_png(blob)  # the native library built and loaded
             t0 = time.perf_counter()
-            if not np.array_equal(viz.decode_png(blob), viz.decode_png(data)):
-                fail(f"crop: decode_png of the {name} frame differs")
+            got = viz.decode_png(blob)
             rec["decode_png_s"][name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rgba = viz._png_convert(blob, "RGBA")
+            rec["read_rgba_s"][name] = time.perf_counter() - t0
+            if not (np.array_equal(got, frame0) and np.array_equal(rgba, frame0)):
+                fail(f"crop: decode_png of the {name} frame differs")
         root = os.path.join(tmp, "seq")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1416,6 +1484,18 @@ def phase_crop(dev, seq) -> None:
         rec["card_and_cpu_crop_s"] = time.perf_counter() - t0
         if bad:
             fail(f"crop: frames {bad} differ between the card and the CPU before encoding")
+        # The CPU's crop writes its JPEGs on the host (Pillow's bytes): the
+        # host encoder's bytes of the card's crops, frame for frame.
+        cpu_root = os.path.join(tmp, "cpu")
+        crop_unscreen_sequence(un, cpu_root, ori_img_dir=ori, device="cpu")
+        other = [i for i, (rgb_i, mask_i) in enumerate(card)
+                 if open(os.path.join(cpu_root, "unscreen_cropped", "%04d.jpg" % i), "rb").read()
+                 != jpeg_bytes(rgb_i.cpu().numpy(), 95)
+                 or open(os.path.join(cpu_root, "mask", "%04d_mask.jpg" % i), "rb").read()
+                 != jpeg_bytes(mask_i.cpu().numpy(), 95)]
+        if other:
+            fail(f"crop: the CPU's JPEGs of frames {other} are not the host bytes of the "
+                 "card's crops")
         init = {k: np.asarray(v)[:n] if np.ndim(v) and np.shape(v)[0] == B_STEP else np.asarray(v)
                 for k, v in seq["init"].items()}
         init["verts"] = np.zeros((n, 1, 3), np.float32)
@@ -1846,14 +1926,14 @@ def phase_arm_fit(dev) -> None:
             epochs = [r for r in map(json.loads, f) if "loss" in r]
         with open(os.path.join(tmp, "config.yaml")) as f:
             cli_cfg = f.read()
-        n_png = len(os.listdir(os.path.join(tmp, "rendered_after_opt")))
+        n_jpg = _composites(os.path.join(tmp, "rendered_after_opt"))
     losses = [r["loss"] for r in epochs]
     counters = {k: max(r.get(k, 0.0) for r in epochs) for k in OVERFLOW_KEYS}
     missing = [k for k in OVERFLOW_KEYS if k not in epochs[2]]
     unused = [k for k, v in launches.items() if v == 0]
     record = {"phase": "arm_fit", "argv": argv, "epoch_losses": losses,
               "overflow_max": counters, "launches": launches, "cli_wall_s": wall_s,
-              "eval_pngs": n_png, **{k: stats.get(k) for k in (
+              "eval_jpgs": n_jpg, **{k: stats.get(k) for k in (
                   "Silhouette IoU", "L1", "MS_SSIM", "LPIPS_proxy", "fit_wall_s",
                   "eval_wall_s", "final_loss", "device")}}
     emit(record)
@@ -1868,8 +1948,8 @@ def phase_arm_fit(dev) -> None:
     if any(f"{k}: {v}" not in cli_cfg for k, v in budget.items()):
         fail(f"arm_fit: the CLI's raster budget is not {budget}:\n{cli_cfg}")
     if not (0.0 < stats["Silhouette IoU"] <= 1.0 and 0.0 < stats["MS_SSIM"] <= 1.0
-            and np.isfinite(stats["L1"]) and n_png == B_STEP):
-        fail(f"arm_fit: eval {stats}, {n_png} composites")
+            and np.isfinite(stats["L1"]) and n_jpg == B_STEP):
+        fail(f"arm_fit: eval {stats}, {n_jpg} composites %04d.jpg")
 
 
 @contextlib.contextmanager
@@ -2028,8 +2108,8 @@ def phase_real_data(dev) -> dict:
             counters = {k: max(r.get(k, 0.0) for r in epochs) for k in OVERFLOW_KEYS}
             # Epoch 0's logs, written at the end of its segment, epochs 0 and 1
             # (the CLI's --epoch-scan 10 within stage 1's two epochs).
-            logs = [n for n in ("sil_0001.png", "0001.png", "val_0001.png", "uv_0001.png",
-                                "normal_0001.png") if os.path.exists(os.path.join(out, n))]
+            logs = [n for n in ("sil_0001.jpg", "0001.jpg", "val_0001.jpg", "uv_0001.jpg",
+                                "normal_0001.jpg") if os.path.exists(os.path.join(out, n))]
             rec.update({"cli_wall_s": wall, "epoch_losses": losses, "overflow_max": counters,
                         "launches": launches, "logs": logs, **{k: stats.get(k) for k in (
                             "Silhouette IoU", "L1", "MS_SSIM", "LPIPS_proxy",
@@ -2198,15 +2278,19 @@ def phase_epoch_scan(dev, seq) -> None:
     3 / 3 / 3: each stage a segment of two epochs (warm-up, capture,
     replay) and one of one (replay). Four fits from one seed: the graph
     twice (the same bits), the same segments eagerly on the card under
-    anomaly mode (--debug-nans' path: "graph": false; the same bits as the
-    graph), the per-step loop (within harp_tpu's scan-against-loop
+    --debug-nans' checks (utils/debug_nans.DebugNans on every op and
+    kernel, and anomaly mode: "graph": false; no NaN, and the same bits as
+    the graph), the per-step loop (within harp_tpu's scan-against-loop
     tolerance), and the graph on a one-rank NCCL mesh (the same bits).
     Every overflow counter 0. Then per stage, on a fresh state: the step
     timed eagerly and replayed (SCAN_TIMED steps each, CUDA-synchronised
     host clock), and one replayed segment of SCAN_PROFILED steps under
-    torch.profiler (profile_window), whose kernels by name must be the
-    per-step launches times the steps, with its device-busy ms and idle
-    gaps. And the per-step loop with
+    torch.profiler (profile_window): the captured graph's kernel nodes by
+    name (utils/profiling.graph_kernel_counts, read through the driver
+    API from the kept cudaGraph_t) times the replays must be the per-step launches times the steps,
+    and each of those kernels must appear in the trace of the replays
+    (whose own counts are recorded: a trace can lose an activity record),
+    with its device-busy ms and idle gaps. And the per-step loop with
     the plain Adams of before (not capturable): how far the capturable
     Adams moved the loop's bits (numbers only)."""
     import dataclasses
@@ -2220,6 +2304,7 @@ def phase_epoch_scan(dev, seq) -> None:
     from harp_tpu_torch.fit.params import init_params
     from harp_tpu_torch.parallel import make_mesh
     from harp_tpu_torch.render import pipeline
+    from harp_tpu_torch.utils.debug_nans import DebugNans
 
     base, vgg, aux_gt, _ = vgg_setup(seq, dev, "bfloat16")
     config = dataclasses.replace(base, training_stage=SCAN_STAGES, total_epoch=sum(SCAN_STAGES))
@@ -2236,6 +2321,8 @@ def phase_epoch_scan(dev, seq) -> None:
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             with torch.autograd.set_detect_anomaly(anomaly), contextlib.ExitStack() as stack:
+                if anomaly:  # --debug-nans' checks: every op's outputs, and anomaly mode
+                    stack.enter_context(DebugNans())
                 m = stack.enter_context(make_mesh(1, device=dev)) if mesh else None
                 if name == "loop_plain_adam":  # the Adams before they were capturable
                     stack.enter_context(_plain_adams())
@@ -2305,7 +2392,9 @@ def phase_epoch_scan(dev, seq) -> None:
                     lambda: scan.run(*segment(SCAN_PROFILED, 2 * SCAN_TIMED + 2),
                                      config.plateau_patience, config.plateau_factor),
                     kernel_names=KERNEL_NAMES)
-                counts = prof["kernel_counts"]
+                trace = prof["kernel_counts"]
+                nodes, n_nodes = graph_kernel_counts(scan.graph, KERNEL_NAMES)
+                counts = {k: v * SCAN_PROFILED for k, v in nodes.items()}
                 per_step = expected_launches(*n_of)
                 want = {k: v * SCAN_PROFILED for k, v in per_step.items()}
                 stages[label] = {"eager_step_ms": ms["eager"], "replayed_step_ms": ms["graph"],
@@ -2314,11 +2403,16 @@ def phase_epoch_scan(dev, seq) -> None:
                                  "profiled_wall_ms": prof["wall_ms"],
                                  "device_busy_ms": prof["device_busy_ms"],
                                  "device_busy_share": prof["device_busy_share"],
+                                 "graph_kernel_nodes": n_nodes,
                                  "kernel_counts": counts, "expected_counts": want,
+                                 "trace_kernel_counts": trace,
                                  "top": prof["top"][:8], "idle_gaps": prof["idle_gaps"][:3]}
                 if counts != want:
-                    fail(f"epoch_scan: {label}: profiled kernels of {SCAN_PROFILED} replayed "
-                         f"steps {counts}, expected {want}")
+                    fail(f"epoch_scan: {label}: the graph's kernels of {SCAN_PROFILED} "
+                         f"replayed steps {counts}, expected {want}")
+                if any(want[k] and not trace[k] for k in want):
+                    fail(f"epoch_scan: {label}: kernels of the graph absent from the trace of "
+                         f"its replays: {trace}, expected {want}")
             scan.close()
         del step, params
     emit({"phase": "epoch_scan", "frames": B_STEP, "stages": list(SCAN_STAGES),
@@ -2337,7 +2431,7 @@ def phase_epoch_scan(dev, seq) -> None:
     if [r["graph"] for r in seg] != [True] * 6 or len(capture_s) != 3:
         fail(f"epoch_scan: segments {[r['graph'] for r in seg]}, captures {capture_s}")
     if [r.get("graph") for r in runs["eager"]["lines"] if "segment_s" in r] != [False] * 6:
-        fail("epoch_scan: the anomaly-mode fit's segments are not logged graph: false")
+        fail("epoch_scan: the --debug-nans fit's segments are not logged graph: false")
     if any(counters.values()):
         fail(f"epoch_scan: overflow counters {counters}")
     losses = g["losses"]

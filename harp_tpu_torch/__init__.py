@@ -24,8 +24,9 @@ The module tree mirrors harp_tpu/ so each counterpart is easy to find:
     eval/                IoU, L1, MS-SSIM, the VGG perceptual proxy,
                          Procrustes
     utils/               checkpoint / result IO, the async checkpointer
-                         (orbax_io.py), JSONL metrics and profiling, PNG
-                         visual outputs
+                         (orbax_io.py), JSONL metrics and profiling, image
+                         files and readers (viz.py), --debug-nans
+                         (debug_nans.py)
     data/                synthetic ground-truth sequences
     fit_avatar.py        the CLI: python -m harp_tpu_torch.fit_avatar --synthetic
 

@@ -136,7 +136,7 @@ def write_hand_model_files(assets: AvatarAssets, mano_pkl: str, template_obj: st
     A hand that loads back from them renders the same vertices; its
     joints take MANO's fingertip vertex ids (TIPS_RIGHT), as every loaded
     MANO does."""
-    from harp_tpu_torch.utils.viz import save_image
+    from harp_tpu_torch.utils.viz import encode_png
 
     m = assets.model
     hands_mean = np.zeros(45, np.float32) if m.flat_hand_mean else m.hands_mean
@@ -159,7 +159,9 @@ def write_hand_model_files(assets: AvatarAssets, mano_pkl: str, template_obj: st
         f.writelines("vt %.9g %.9g\n" % tuple(t) for t in assets.verts_uvs)
         f.writelines("f %d/%d %d/%d %d/%d\n" % (a + 1, ta + 1, b + 1, tb + 1, c + 1, tc + 1)
                      for (a, b, c), (ta, tb, tc) in zip(assets.render_faces, assets.faces_uvs))
-    save_image((np.asarray(assets.uv_mask) * 255).astype(np.uint8), uv_mask_png)
+    os.makedirs(os.path.dirname(os.path.abspath(uv_mask_png)), exist_ok=True)
+    with open(uv_mask_png, "wb") as f:  # one grey channel (save_image would stack it to RGB)
+        f.write(encode_png((np.asarray(assets.uv_mask) * 255).astype(np.uint8)))
 
 
 # ---------------------------------------------------------------------------

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from harp_tpu_torch.utils.profiling import (
-    PEAK_BF16_S, device_record, profile_window, timing_stats,
+    PEAK_BF16_S, device_record, graph_kernel_counts, profile_window, timing_stats,
 )
 
 REFERENCE_FRAMES_PER_SEC_ESTIMATE = 8.0
@@ -227,9 +227,11 @@ def measure_replayed(B: int = 18, device=None, steps: int = 10, *, img: int = IM
     two epochs warms up (one eager step), captures and replays; then
     `steps` segments of one epoch, each synchronised and timed (one replay,
     the epoch's fold and the plateau's update on the device, the segment's
-    ids and key copied in); one more profiled, whose kernels by name must
-    include each hand-written kernel. The record of _record with the
-    capture's seconds. CUDA only (a graph needs the card)."""
+    ids and key copied in); one more profiled. The captured graph's kernel
+    nodes by name (graph_kernel_counts: a trace can lose records of the
+    first replay after the profiler starts) must include each hand-written
+    kernel. The record of _record with the capture's seconds and those
+    counts. CUDA only (a graph needs the card)."""
     from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, FitData, _key_stream_np, make_epoch_scan
     from harp_tpu_torch.fit.optimizer import DevicePlateau, PlateauState
 
@@ -262,14 +264,15 @@ def measure_replayed(B: int = 18, device=None, steps: int = 10, *, img: int = IM
             _merge_overflow(overflow, dict(zip(OVERFLOW_KEYS, out[0, cols].tolist())))
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         prof = profile_window(lambda: segment(1, 2 + steps), kernel_names=KERNEL_NAMES)
+        nodes, _ = graph_kernel_counts(scan.graph, KERNEL_NAMES)
         rec = dict(_record(sc, times, overflow, peak, prof), loss=float(out[0, 0]),
-                   capture_s=scan.capture_s)
+                   capture_s=scan.capture_s, graph_kernel_counts=nodes)
     finally:
         scan.close()
     _check("replayed", rec)
-    missing = [k for k, n in prof["kernel_counts"].items() if n < 1]
+    missing = [k for k, n in nodes.items() if n < 1]
     if missing:
-        raise RuntimeError(f"bench replayed: the profiled replay launched no {missing}")
+        raise RuntimeError(f"bench replayed: the captured step launches no {missing}")
     return rec
 
 

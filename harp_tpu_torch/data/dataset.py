@@ -45,8 +45,9 @@ def write_sequence(root: str, seq: str, images, masks, params: dict,
                    quality: int = 95, use_smooth_seq: bool = True) -> None:
     """Write one sequence in the reference's layout under `root` (as
     metro_output_dir and image_dir both): frames and masks as JPEG at
-    `quality` through the port's encoder (nvJPEG for CUDA tensors, libjpeg
-    otherwise), and one per-frame pkl of `params` each."""
+    `quality` through the port's encoder (nvJPEG for CUDA tensors, else
+    native/jpeg_codec.cpp: Pillow's bytes), and one per-frame pkl of
+    `params` each."""
     folder = "metro_mano_smooth" if use_smooth_seq else "metro_mano"
     dirs = [os.path.join(root, str(seq), d) for d in ("unscreen_cropped", "mask", folder)]
     for d in dirs:

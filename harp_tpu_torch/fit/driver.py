@@ -52,6 +52,7 @@ from harp_tpu_torch.render.rasterizer import (
     RasterConfig, gather_tiles, scatter_tiles, soft_alpha_fast_pack,
 )
 from harp_tpu_torch.render.shadow import shadow_visibility_compact
+from harp_tpu_torch.utils import debug_nans
 
 OVERFLOW_KEYS = ("bin_overflow", "active_overflow", "span_overflow",
                  "light_bin_overflow", "light_active_overflow",
@@ -421,9 +422,12 @@ class EpochScan:
     stream (real steps of the fit, so it takes as many Adam updates as
     harp_tpu's), then the step is captured once, under the caller's
     deterministic_convolutions(), and replayed for the rest of the stage.
-    graph False (the CPU, a gloo mesh, anomaly mode) runs the same step
-    eagerly every time. close() releases the graph and its memory pool:
-    a stage's graph is never replayed after its stage.
+    graph False (the CPU, a gloo mesh, anomaly mode, --debug-nans) runs
+    the same step eagerly every time. The captured cudaGraph_t is kept
+    beside its executable (self.graph.raw_cuda_graph()), so that its
+    kernel nodes can be read (utils/profiling.graph_kernel_counts).
+    close() releases the graph and its memory pool: a stage's graph is
+    never replayed after its stage.
 
     With a mesh, the gradient all-reduce of the step is inside the graph
     (NCCL); each coarse epoch's total is all-reduced for the plateau, and
@@ -476,7 +480,7 @@ class EpochScan:
             self.eager_steps += 1
         else:
             t0 = time.perf_counter()
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(graph):
                 self._body()
             self.graph = graph
@@ -556,7 +560,7 @@ _LOG_FRAMES = 9  # the first frames of a log's 3x3 grid
 def _log_images(params, data: FitData, assets, config, rcfg, out_dir: str, epoch: int,
                 submit) -> None:
     """The silhouette overlay (GT red, prediction blue) and the RGB render
-    of the first frames as 3x3 grids, sil_%04d.png and %04d.png (harp_tpu's
+    of the first frames as 3x3 grids, sil_%04d.jpg and %04d.jpg (harp_tpu's
     _log_images; the reference's show_img_pair logging). Renders from the
     live parameters under no_grad and touches nothing of the fit; the
     host arrays go to submit(fn, *args), fit_sequence's background writer,
@@ -573,8 +577,8 @@ def _log_images(params, data: FitData, assets, config, rcfg, out_dir: str, epoch
         rgb = pipeline.render_rgb(verts, assets, R, T, config, rcfg, params["texture"],
                                   params["normal_map"], light)
     submit(viz.save_pair_grid, alpha.cpu().numpy(), decode_frames(data.masks[:n]).cpu().numpy(),
-           os.path.join(out_dir, "sil_%04d.png" % epoch), True)
-    submit(viz.save_pair_grid, rgb.cpu().numpy(), None, os.path.join(out_dir, "%04d.png" % epoch))
+           os.path.join(out_dir, "sil_%04d.jpg" % epoch), True)
+    submit(viz.save_pair_grid, rgb.cpu().numpy(), None, os.path.join(out_dir, "%04d.jpg" % epoch))
 
 
 def _log_val_images(params, val_params: dict, val_data: FitData, assets, config, rcfg,
@@ -582,8 +586,8 @@ def _log_val_images(params, val_params: dict, val_data: FitData, assets, config,
     """The held-out render during the fit (harp_tpu's _log_val_images; the
     reference's visualize_val): the first validation frames with their own
     per-frame parameters (val_params) and the shared shape and appearance
-    of the live fit, as val_%04d.png, with the texture (uv_%04d.png) and
-    the normal map (normal_%04d.png)."""
+    of the live fit, as val_%04d.jpg, with the texture (uv_%04d.jpg) and
+    the normal map (normal_%04d.jpg)."""
     from harp_tpu_torch.render.shadow import render_rgb_with_shadow
     from harp_tpu_torch.utils import viz
 
@@ -608,13 +612,13 @@ def _log_val_images(params, val_params: dict, val_data: FitData, assets, config,
         if nm is not None:
             nm = nm / torch.clamp(torch.linalg.vector_norm(nm, dim=-1, keepdim=True), min=1e-8)
     submit(viz.save_pair_grid, rgb.cpu().numpy(), None,
-           os.path.join(out_dir, "val_%04d.png" % epoch))
+           os.path.join(out_dir, "val_%04d.jpg" % epoch))
     if "texture" in params or "html_texture" in params:
         submit(viz.save_image, texture.detach().cpu().numpy(),
-               os.path.join(out_dir, "uv_%04d.png" % epoch))
+               os.path.join(out_dir, "uv_%04d.jpg" % epoch))
     if nm is not None:
         submit(viz.save_image, nm.detach().cpu().numpy() * 0.5 + 0.5,
-               os.path.join(out_dir, "normal_%04d.png" % epoch))
+               os.path.join(out_dir, "normal_%04d.jpg" % epoch))
 
 
 def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
@@ -631,10 +635,10 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
     mean over the epoch's steps, overflow counters included.
 
     out_dir: per-epoch JSONL (metrics.jsonl); every `image_log_every`
-    epochs the image logs (sil_%04d.png, %04d.png) and, with val_data and
+    epochs the image logs (sil_%04d.jpg, %04d.jpg) and, with val_data and
     val_params (a validation sequence and its per-frame parameters), every
-    `val_log_every` epochs the val logs (val_%04d.png, uv_%04d.png,
-    normal_%04d.png), each after its epoch's steps, named by that epoch and
+    `val_log_every` epochs the val logs (val_%04d.jpg, uv_%04d.jpg,
+    normal_%04d.jpg), each after its epoch's steps, named by that epoch and
     rendered without touching the fit's state; every `checkpoint_every`
     epochs, saved_params.pkl and checkpoint.pt (params, both Adam states,
     epoch, plateau state, the ARAP reference), or with
@@ -650,9 +654,9 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
     one stage (harp_tpu's fused epoch scans): each segment draws its
     permutations at once, fills the runner's device buffers, and runs its
     steps as replays of a CUDA graph of the step (make_epoch_scan; eagerly
-    on the CPU, on a gloo mesh and under anomaly mode, which checks
-    outputs on the host), the plateau updated on the device in float32;
-    one host read a segment. Image logs, val logs and checkpoints that
+    on the CPU, on a gloo mesh and under anomaly mode or utils/debug_nans,
+    which check outputs on the host), the plateau updated on the device in
+    float32; one host read a segment. Image logs, val logs and checkpoints that
     fall due inside a segment run once, at its last epoch, with that
     epoch's label; metrics.jsonl has a line an epoch, the segment's
     seconds, whether it ran as a graph and the capture's seconds on its
@@ -706,9 +710,10 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
         from harp_tpu_torch.utils.orbax_io import OrbaxCheckpointer
 
         ckpt = OrbaxCheckpointer(out_dir)
-    # The logs' PNG encoding and writing run on one background thread (zlib
-    # releases the interpreter lock), as harp_tpu's writer queue does: the
-    # epoch loop pays the renders and their copies to the host only.
+    # The logs' JPEG encoding and writing run on one background thread (the
+    # codec, called through ctypes, releases the interpreter lock), as
+    # harp_tpu's writer queue does: the epoch loop pays the renders and
+    # their copies to the host only.
     writer = (ThreadPoolExecutor(max_workers=1) if out_dir is not None
               and (image_log_every or val_data is not None) else None)
     writes = []
@@ -744,9 +749,9 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
                 and n <= config.vgg_cache_max_frames)
     use_scan = epoch_scan > 1 and callback is None
     # A graph on the card; eager segments where the step reads the host:
-    # gloo's collectives, anomaly mode's checks.
+    # gloo's collectives, anomaly mode's and --debug-nans' checks.
     graphs = (use_scan and dev.type == "cuda" and not torch.is_anomaly_enabled()
-              and (mesh is None or mesh.backend == "nccl"))
+              and not debug_nans.active() and (mesh is None or mesh.backend == "nccl"))
     if logger is not None:
         logger.log(-1, setup_total_s=time.perf_counter() - t0)
 

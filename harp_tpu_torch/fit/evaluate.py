@@ -6,7 +6,8 @@ proxy and MS-SSIM per frame; GT | pred | normal | overlay composites
 quantised to uint8 on the device. That pass over the whole sequence is one
 program (make_eval_program, harp_tpu's one jit over frame groups): on CUDA
 one CUDA graph, captured at its first call and replayed. Then the
-composites as PNGs, the texture maps, the posed frame-0 mesh as an OBJ,
+composites as JPEGs (rendered_after_opt/%04d.jpg, as harp_tpu writes
+them), the texture maps (PNG), the posed frame-0 mesh as an OBJ,
 the optional Procrustes vertex error against GT meshes,
 eval_results[_test].txt, and with `turntables` frame 0's turntables, their
 side-by-side combination and its light sweep (utils/viz.py: render_360,
@@ -36,7 +37,7 @@ from harp_tpu_torch.losses.perceptual import Vgg16Features
 from harp_tpu_torch.render import pipeline
 from harp_tpu_torch.render.rasterizer import RasterConfig
 from harp_tpu_torch.render.shadow import render_rgb_with_shadow
-from harp_tpu_torch.utils import viz
+from harp_tpu_torch.utils import debug_nans, viz
 from harp_tpu_torch.utils.io import export_obj
 
 
@@ -94,8 +95,10 @@ class EvalProgram:
     (cuDNN picks the eager pass's algorithms: no autotuning), and replays
     it; later calls replay it. capture_s is the capture's wall, captures
     their count. A failed capture raises: there is no eager fall-back.
-    Without graph (the CPU) every call runs the same pass eagerly. close()
-    releases the graph, its memory pool and the buffers."""
+    The captured cudaGraph_t is kept (self.graph.raw_cuda_graph()), so
+    that its kernel nodes can be read. Without graph (the CPU) every call
+    runs the same pass eagerly. close() releases the graph, its memory
+    pool and the buffers."""
 
     def __init__(self, config, assets, data: FitData, rcfg: RasterConfig, vgg, g: int,
                  device: torch.device, extras: dict | None, graph: bool):
@@ -170,7 +173,7 @@ class EvalProgram:
             self._run(range(1))
         torch.cuda.current_stream(dev).wait_stream(side)
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph):
             self._run(range(self.n // self.g))
         self.graph = graph
@@ -207,10 +210,11 @@ def make_eval_program(config, assets, data: FitData, rcfg: RasterConfig,
     make_eval_program). Every tile is rasterized (active_fraction 1, as
     harp_tpu's full-image raster). The metrics run the float32 VGG (vgg,
     or the config's). graph: capture the pass as a CUDA graph (default:
-    on CUDA, which it needs). extras: the model family's statics (HTML's
-    texture basis). Runs on CUDA unless device is given."""
+    on CUDA, which it needs, unless utils/debug_nans is active). extras:
+    the model family's statics (HTML's texture basis). Runs on CUDA unless
+    device is given."""
     dev = resolve_device(device)
-    graph = dev.type == "cuda" if graph is None else graph
+    graph = dev.type == "cuda" and not debug_nans.active() if graph is None else graph
     if graph and dev.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}")
     if vgg is None:
@@ -302,8 +306,7 @@ def evaluate_sequence(config, assets, data: FitData, params: dict, aux: dict,
         rgb_dir = viz.render_360(params, 0, assets, config, rcfg, out_dir, **kw)
         nrm_dir = viz.render_360(params, 0, assets, config, rcfg, out_dir, render_normal=True,
                                  **kw)
-        viz.concat_image_dirs(rgb_dir, nrm_dir, os.path.join(out_dir, "render_360_combine"),
-                              device=dev)
+        viz.concat_image_dirs(rgb_dir, nrm_dir, os.path.join(out_dir, "render_360_combine"))
         viz.render_360_light(params, 0, assets, config, rcfg, out_dir, **kw)
         walls = {**{"turntable_" + k: v for k, v in tt.items()},
                  "eval_turntables_s": time.perf_counter() - t1}
@@ -311,7 +314,7 @@ def evaluate_sequence(config, assets, data: FitData, params: dict, aux: dict,
     if save_images:
         t1 = time.perf_counter()
         comps = comps.cpu().numpy()  # (n, H, 4W, 3) uint8, one transfer
-        viz.save_images_parallel((comps[f], os.path.join(img_dir, "%04d.png" % f))
+        viz.save_images_parallel((comps[f], os.path.join(img_dir, "%04d.jpg" % f))
                                  for f in range(n))
         with torch.no_grad():
             texture = appearance_texture(params, config, extras)

@@ -35,20 +35,25 @@ through the async checkpointer (utils/orbax_io.py) under --out/orbax/.
 Writes config.yaml, metrics.jsonl, the image logs every 10 epochs,
 saved_params.pkl, checkpoint.pt (or orbax/), the eval composites and maps,
 eval_results.txt, frame 0's turntables (render_360/, render_360_normal/,
-render_360_combine/, render_360_light/: PNG frames and out.gif; on by
+render_360_combine/, render_360_light/: JPEG frames and out.gif; on by
 default as in harp_tpu, --no-turntables skips them) and fit_summary.json
 under --out, and prints the summary. --epoch-scan N (10, harp_tpu's
 default) runs the fit in segments of N epochs, each step a replay of a
 CUDA graph of the train step (fit_sequence(epoch_scan=N)); 0 or 1 runs the
-per-step loop. --debug-nans runs the fit under torch's anomaly mode, which
-checks each backward function's outputs for NaN (harp_tpu's
-jax_debug_nans checks every operation); its checks read the card from the
-host, so the segments then run eagerly (metrics.jsonl: "graph": false).
+per-step loop. --debug-nans runs the fit and the eval under
+utils/debug_nans.DebugNans, as harp_tpu's jax_debug_nans: every operation's
+floating outputs, forward and backward, and every hand-written kernel's,
+are checked for NaN, and the first NaN raises FloatingPointError naming
+the operation; torch's anomaly mode runs beside it, for the forward
+traceback of a failing backward. The checks read the card from the host,
+so the epoch scan's segments and the eval then run eagerly
+(metrics.jsonl: "graph": false).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 
@@ -110,9 +115,10 @@ def parse_args(argv=None):
     p.add_argument("--turntables", action=argparse.BooleanOptionalAction, default=True,
                    help="render frame 0's turntables and light sweep after the eval")
     p.add_argument("--debug-nans", action="store_true",
-                   help="fit under torch.autograd's anomaly mode with its NaN check (the "
-                        "epoch scan's segments then run eagerly: the checks read the card "
-                        "from the host, which a CUDA graph cannot)")
+                   help="raise FloatingPointError at the first operation that yields a "
+                        "NaN, in the fit and the eval (the epoch scan's segments and the "
+                        "eval then run eagerly: the checks read the card from the host, "
+                        "which a CUDA graph cannot)")
     p.add_argument("--epoch-scan", type=int, default=10,
                    help="epochs a segment: the steps of each run as replays of a CUDA graph "
                         "of the train step, logs and checkpoints at the segment's end; 0 or "
@@ -242,6 +248,7 @@ def _run(args, mesh=None) -> dict | None:
     from harp_tpu_torch.fit.params import init_params
     from harp_tpu_torch.fit.resume import load_fit_checkpoint, prepare_resume_params
     from harp_tpu_torch.losses.perceptual import Vgg16Features
+    from harp_tpu_torch.utils.debug_nans import DebugNans
     from harp_tpu_torch.utils.io import save_result
     from harp_tpu_torch.utils.profiling import Timer
 
@@ -273,10 +280,12 @@ def _run(args, mesh=None) -> dict | None:
     if lead:  # the fused eval pass of the fitted sequence, as harp_tpu's CLI builds it
         eval_vgg = Vgg16Features.create(weights_path=config.vgg_weights or None, device=dev)
         eval_prog, _ = make_eval_program(config, assets, data, rcfg, eval_vgg, device=dev,
-                                         extras=extras)
+                                         extras=extras, graph=dev.type == "cuda"
+                                         and not args.debug_nans)
+    nan_checks = DebugNans if args.debug_nans else contextlib.nullcontext
 
-    with Timer(dev) as t_fit, torch.autograd.set_detect_anomaly(args.debug_nans,
-                                                                check_nan=True):
+    with nan_checks(), Timer(dev) as t_fit, torch.autograd.set_detect_anomaly(
+            args.debug_nans, check_nan=True):
         params, history = fit_sequence(config, assets, data, params, aux, rcfg=rcfg,
                                        out_dir=config.base_output_dir, image_log_every=10,
                                        resume=resume, extras=extras, device=dev, mesh=mesh,
@@ -284,7 +293,7 @@ def _run(args, mesh=None) -> dict | None:
     if not lead:
         return None
     save_result(params, config.base_output_dir, test=config.known_appearance)
-    with Timer(dev) as t_eval:
+    with nan_checks(), Timer(dev) as t_eval:
         stats = evaluate_sequence(config, assets, data, params, aux, rcfg=rcfg, device=dev,
                                   extras=extras, turntables=args.turntables, vgg=eval_vgg,
                                   eval_program=eval_prog)

@@ -5,8 +5,9 @@ Two libraries, each built at first use into harp_tpu_torch/_build/ under a
 name that hashes its source and flags, and bound through ctypes:
 
 - frameloader.cpp, on libjpeg (g++ -ljpeg): the host path, taken for a CPU
-  device. It decodes on a pool of threads into one float32 array, bit for
-  bit as harp_tpu's native loader does against the same libjpeg.
+  device. It decodes any JPEG libjpeg reads on a pool of threads into one
+  float32 array, bit for bit as harp_tpu's native loader does against the
+  same libjpeg.
 - frameloader_nvjpeg.cu, on nvJPEG (nvcc -lnvjpeg, csrc/build.py): the
   card path, taken for a CUDA device. One batched decode writes uint8
   frames into device memory, scaled by 1/255 there.
@@ -17,8 +18,17 @@ two: a missing library raises an error that names it, and a file that is
 missing, is no JPEG or has another size than the first raises with its
 path.
 
-A third library, gif_lzw.cpp (g++, no dependency), is the LZW loop of
-the port's GIF writer (utils/viz.py save_gif): gif_lzw().
+Three more host libraries need no other library, so they build wherever
+g++ is, the card's machine included, and give the same bytes there:
+
+- jpeg_codec.cpp: the JPEG writer of the port's images (utils/viz.py
+  save_image) and of encode_jpeg on the host, with Pillow's (libjpeg's)
+  bytes, and the reader of the JPEGs the port writes (decode_jpeg), with
+  libjpeg's pixels;
+- png_decode.cpp: the row filters, interlace and sample unpacking of the
+  port's PNG reader (utils/viz.py decode_png): png_pixels();
+- gif_lzw.cpp: the LZW loop of the port's GIF writer (utils/viz.py
+  save_gif): gif_lzw().
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ HOST_SOURCE = _HERE / "frameloader.cpp"
 HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 HOST_LIBS = ["-ljpeg"]
 GIF_SOURCE = _HERE / "gif_lzw.cpp"
+JPEG_SOURCE = _HERE / "jpeg_codec.cpp"
+PNG_SOURCE = _HERE / "png_decode.cpp"
 _BUILD_LOCK = threading.Lock()
 _STATUS = {1: "cannot be opened", 2: "is not a decodable JPEG", 3: "has another size",
            4: "cannot be written"}
@@ -85,9 +97,6 @@ def _host() -> ctypes.CDLL:
                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                     ctypes.c_void_p]
     lib.hf_decode_batch.restype = ctypes.c_long
-    lib.hf_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_char_p]
-    lib.hf_encode.restype = ctypes.c_int
     return lib
 
 
@@ -193,11 +202,12 @@ def decode_jpeg_batch(paths, gray: bool = False, device=None) -> torch.Tensor:
 
 
 def encode_jpeg(frame, path, quality: int = 95) -> None:
-    """One frame -> a baseline JPEG file at `quality`, as PIL's
+    """One frame -> a baseline JPEG file at `quality`, as Pillow's
     Image.save(path, quality=quality) writes it: (H, W, 3) RGB or (H, W)
     grey, uint8 or float in [0, 1] (quantised as harp_tpu's writers do:
     (x * 255).astype(uint8)). A CPU tensor or numpy array goes through
-    libjpeg, a CUDA tensor through nvJPEG's encoder."""
+    jpeg_codec.cpp (Pillow's bytes on any machine), a CUDA tensor through
+    nvJPEG's encoder."""
     path = os.fspath(path)
     if isinstance(frame, torch.Tensor) and frame.device.type == "cuda":
         x = frame if frame.dtype == torch.uint8 else (frame * 255).to(torch.uint8)
@@ -214,17 +224,92 @@ def encode_jpeg(frame, path, quality: int = 95) -> None:
             stream = torch.cuda.current_stream(x.device).cuda_stream
             _nvjpeg_check(lib.hn_encode(x.data_ptr(), h, w, c, quality, stream, buf,
                                         cap.value, ctypes.byref(n)), f"encoding {path}")
+        data = buf.raw[:n.value]
+    else:
+        a = frame.detach().cpu().numpy() if isinstance(frame, torch.Tensor) else np.asarray(frame)
+        if a.dtype != np.uint8:
+            a = (a * 255).astype(np.uint8)
+        data = jpeg_bytes(a, quality)
+    try:
         with open(path, "wb") as f:
-            f.write(buf.raw[:n.value])
-        return
-    a = frame.detach().cpu().numpy() if isinstance(frame, torch.Tensor) else np.asarray(frame)
-    if a.dtype != np.uint8:
-        a = (a * 255).astype(np.uint8)
-    a = np.ascontiguousarray(a)
-    c = 1 if a.ndim == 2 else a.shape[2]
-    st = _host().hf_encode(a.ctypes.data, a.shape[0], a.shape[1], c, quality, path.encode())
+            f.write(data)
+    except OSError as e:
+        raise OSError(f"frame {path} {_STATUS[4]}: {e}") from e
+
+
+@functools.cache
+def _codec() -> ctypes.CDLL:
+    lib = _build_host(JPEG_SOURCE, [], "the host JPEG codec", "")
+    u8p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hj_encode.argtypes = [u8p, i, i, i, i, u8p, ctypes.c_long]
+    lib.hj_encode.restype = ctypes.c_long
+    lib.hj_info.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(i), ctypes.POINTER(i),
+                            ctypes.POINTER(i), ctypes.c_char_p, i]
+    lib.hj_decode.argtypes = [ctypes.c_char_p, ctypes.c_long, u8p, i, i, i, ctypes.c_char_p, i]
+    lib.hj_info.restype = lib.hj_decode.restype = i
+    return lib
+
+
+def jpeg_bytes(img: np.ndarray, quality: int = 75) -> bytes:
+    """(H, W, 3) RGB or (H, W) grey uint8 -> the JPEG file Pillow's
+    Image.fromarray(img).save(f, "JPEG", quality=quality) writes (4:2:0
+    for colour), byte for byte."""
+    a = np.ascontiguousarray(img, np.uint8)
+    if a.ndim not in (2, 3) or (a.ndim == 3 and a.shape[2] != 3) or 0 in a.shape:
+        raise ValueError(f"jpeg_bytes takes (H, W) or (H, W, 3) uint8, got {a.shape}")
+    c = 1 if a.ndim == 2 else 3
+    h16, w16 = -(-a.shape[0] // 16) * 16, -(-a.shape[1] // 16) * 16
+    cap = 8 * h16 * w16 * c + 4096  # > 6.6 bytes a sample, the worst case with stuffing
+    out = np.empty(cap, np.uint8)
+    n = _codec().hj_encode(a.ctypes.data, a.shape[0], a.shape[1], c, quality, out.ctypes.data,
+                           cap)
+    if n < 0:
+        raise RuntimeError("jpeg_bytes: the output buffer is too short")
+    return out[:n].tobytes()
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A baseline or extended sequential JPEG's bytes -> uint8 pixels as
+    libjpeg decodes them by default (the accurate integer IDCT, fancy
+    upsampling), as Pillow's Image.open gives them: (H, W) grey or
+    (H, W, 3) RGB. Raises ValueError with the reason for a file it cannot
+    read (progressive, arithmetic-coded, 12-bit, CMYK, corrupt)."""
+    lib = _codec()
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    if lib.hj_info(data, len(data), ctypes.byref(h), ctypes.byref(w), ctypes.byref(c), err,
+                   256):
+        raise ValueError(f"JPEG: {err.value.decode()}")
+    out = np.empty((h.value, w.value, c.value), np.uint8)
+    if lib.hj_decode(data, len(data), out.ctypes.data, h.value, w.value, c.value, err, 256):
+        raise ValueError(f"JPEG: {err.value.decode()}")
+    return out[..., 0] if c.value == 1 else out
+
+
+@functools.cache
+def _png() -> ctypes.CDLL:
+    lib = _build_host(PNG_SOURCE, [], "the PNG reader", "")
+    i = ctypes.c_int
+    lib.hp_decode.argtypes = [ctypes.c_char_p, ctypes.c_long, i, i, i, i, i, ctypes.c_void_p]
+    lib.hp_decode.restype = i
+    return lib
+
+
+def png_pixels(raw: bytes, h: int, w: int, depth: int, channels: int,
+               interlace: bool) -> np.ndarray:
+    """A PNG's inflated image data -> its samples (H, W, channels): the row
+    filters undone, Adam7 passes put in place when `interlace`, 1-, 2- and
+    4-bit samples unpacked (values 0 .. 2^depth - 1, not scaled); uint8,
+    or uint16 at depth 16. Raises ValueError when raw is short or a row
+    has an unknown filter type."""
+    out = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    st = _png().hp_decode(raw, len(raw), w, h, depth, channels, int(bool(interlace)),
+                          out.ctypes.data)
+    if st == 1:
+        raise ValueError("PNG image data is truncated")
     if st:
-        raise OSError(f"frame {path} {_STATUS[st]}")
+        raise ValueError(f"PNG row with unknown filter type {st - 2}")
+    return out
 
 
 @functools.cache

@@ -1,4 +1,4 @@
-// Host JPEG frame decoder and encoder on libjpeg, with a plain C interface
+// Host JPEG frame decoder on libjpeg, with a plain C interface
 // bound through ctypes (harp_tpu_torch/native/__init__.py).
 //
 // The port's counterpart of harp_tpu/native/frameloader.cpp: a whole
@@ -10,17 +10,13 @@
 // weights), one size check per file against the first file, and
 // v * (1.0f / 255.0f).
 //
-// The encoder writes what harp_tpu's Image.save(path, quality=q) writes:
-// baseline JPEG with libjpeg's defaults (4:2:0 chroma for colour, one
-// component for grey) at quality q.
+// (The host encoder is jpeg_codec.cpp, which needs no libjpeg.)
 //
 //   hf_probe(path, &h, &w)                                -> 0 or a status
 //   hf_decode_batch(paths, n, h, w, gray, threads, out, status)
 //       -> index of the first file that failed, or -1
-//   hf_encode(pixels, h, w, channels, quality, path)      -> 0 or a status
 //
-// Status codes: 1 cannot open, 2 not a decodable JPEG, 3 wrong size,
-// 4 cannot write.
+// Status codes: 1 cannot open, 2 not a decodable JPEG, 3 wrong size.
 
 #include <atomic>
 #include <csetjmp>
@@ -142,39 +138,6 @@ long hf_decode_batch(const char* const* paths, int n, int h, int w, int gray,
   }
   for (auto& th : pool) th.join();
   return failed.load();
-}
-
-int hf_encode(const uint8_t* pixels, int h, int w, int channels, int quality,
-              const char* path) {
-  FILE* f = fopen(path, "wb");
-  if (!f) return 4;
-  jpeg_compress_struct cinfo;
-  JpegErr err;
-  cinfo.err = jpeg_std_error(&err.mgr);
-  err.mgr.error_exit = on_error;
-  err.mgr.output_message = no_message;
-  if (setjmp(err.jump)) {
-    jpeg_destroy_compress(&cinfo);
-    fclose(f);
-    return 4;
-  }
-  jpeg_create_compress(&cinfo);
-  jpeg_stdio_dest(&cinfo, f);
-  cinfo.image_width = w;
-  cinfo.image_height = h;
-  cinfo.input_components = channels;
-  cinfo.in_color_space = channels == 1 ? JCS_GRAYSCALE : JCS_RGB;
-  jpeg_set_defaults(&cinfo);
-  jpeg_set_quality(&cinfo, quality, TRUE);
-  jpeg_start_compress(&cinfo, TRUE);
-  const size_t stride = static_cast<size_t>(w) * channels;
-  while (cinfo.next_scanline < cinfo.image_height) {
-    JSAMPROW row = const_cast<JSAMPROW>(pixels + cinfo.next_scanline * stride);
-    jpeg_write_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_compress(&cinfo);
-  jpeg_destroy_compress(&cinfo);
-  return fclose(f) == 0 ? 0 : 4;
 }
 
 }  // extern "C"

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from harp_tpu_torch.csrc import build
+from harp_tpu_torch.utils.debug_nans import check_kernel
 
 LAUNCHES = {"segment_sum": 0}
 
@@ -148,6 +149,7 @@ def segment_sum(values: torch.Tensor, order: SegmentOrder) -> torch.Tensor:
                          torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "segment_sum")
     LAUNCHES["segment_sum"] += 1
+    check_kernel(out, "segment_sum")
     return out
 
 

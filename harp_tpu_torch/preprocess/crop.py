@@ -7,8 +7,9 @@ its RGB composited onto white through the resized soft mask. The outputs land in
   {out_root}/unscreen_cropped/%04d.jpg   white-background cropped RGB
   {out_root}/mask/%04d_mask.jpg          cropped 8-bit mask
 
-harp_tpu does this with Pillow. The card's machine has no Pillow, so the
-port carries Pillow 12's arithmetic over itself, in integers (int64
+harp_tpu does this with Pillow. The port reads frames itself (any PNG as
+Pillow converts it, through utils/viz.py; JPEGs through native/) and
+carries Pillow 12's arithmetic over itself, in integers (int64
 tensors): Image.resize(BILINEAR) as Resample.c computes it (separable
 triangle filter, support scaled by the shrink factor, weights in double
 rounded to 22-bit fixed point, horizontal pass then vertical, each
@@ -20,7 +21,6 @@ from __future__ import annotations
 
 import math
 import os
-import struct
 
 import numpy as np
 import torch
@@ -130,38 +130,22 @@ def frame_index(path: str) -> int:
     return int(os.path.basename(path)[-8:-4])
 
 
-def _read_rgba(path: str, device) -> torch.Tensor:
-    """A frame as (H, W, 4) uint8 RGBA on `device`, as Image.convert("RGBA")
-    gives it: RGB gains alpha 255, grey is copied to R, G and B. A JPEG
-    decodes through native.decode_jpeg_batch (libjpeg on the CPU, nvJPEG
-    on the card); a PNG through utils/viz.decode_png. Palette, 16-bit and
-    interlaced PNGs are refused."""
+def _read_frame(path: str, device, mode: str) -> torch.Tensor:
+    """A frame as (H, W, 4) uint8 RGBA or (H, W, 3) RGB on `device`, as
+    Image.open(path).convert(mode) gives it. A JPEG decodes through
+    native.decode_jpeg_batch (libjpeg on the CPU, nvJPEG on the card),
+    gaining alpha 255; a PNG of any bit depth, colour type or interlace
+    through utils/viz.read_rgba / read_rgb on the host."""
     from harp_tpu_torch.native import decode_jpeg_batch
-    from harp_tpu_torch.utils.viz import decode_png
+    from harp_tpu_torch.utils import viz
 
     if path.lower().endswith((".jpg", ".jpeg")):
         rgb = torch.round(decode_jpeg_batch([path], device=device)[0] * 255.0).to(torch.uint8)
-        return torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], 2)
+        return torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], 2) if mode == "RGBA" else rgb
     if not path.lower().endswith(".png"):
         raise ValueError(f"crop reads PNG and JPEG frames only: {path}")
-    with open(path, "rb") as f:
-        data = f.read()
-    _, _, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", data[16:29])
-    kind = ("a palette" if color == 3 else f"bit depth {depth}" if depth != 8
-            else "interlace" if interlace else None)
-    if kind:
-        raise ValueError(f"frame {path} is a PNG with {kind}: crop reads 8-bit grey, RGB "
-                         "and RGBA PNGs, not interlaced")
-    img = decode_png(data)
-    if img.ndim == 2:
-        img = img[..., None]
-    if img.shape[2] <= 2:  # grey (+ alpha)
-        grey = np.repeat(img[..., :1], 3, axis=2)
-        alpha = img[..., 1:2] if img.shape[2] == 2 else np.full_like(img[..., :1], 255)
-        img = np.concatenate([grey, alpha], 2)
-    elif img.shape[2] == 3:
-        img = np.concatenate([img, np.full_like(img[..., :1], 255)], 2)
-    return torch.from_numpy(np.ascontiguousarray(img)).to(device)
+    img = viz.read_rgba(path) if mode == "RGBA" else viz.read_rgb(path)
+    return torch.from_numpy(img).to(device)
 
 
 def crop_frame(unscreen_path: str, ori_path: str | None = None, res: int = RESOLUTION,
@@ -172,10 +156,10 @@ def crop_frame(unscreen_path: str, ori_path: str | None = None, res: int = RESOL
     (the original full-size frame) where that file exists, else from the
     unscreen frame itself."""
     dev = resolve_device(device)
-    rgba = _read_rgba(unscreen_path, dev)
+    rgba = _read_frame(unscreen_path, dev, "RGBA")
     mask = resize_center_crop(rgba[..., 3].contiguous(), res)
     if ori_path is not None and os.path.exists(ori_path):
-        full = _read_rgba(ori_path, dev)[..., :3]
+        full = _read_frame(ori_path, dev, "RGB")
     else:
         full = rgba[..., :3]
     rgb = fill_img_background(resize_center_crop(full.contiguous(), res), mask)
@@ -187,8 +171,8 @@ def crop_unscreen_sequence(unscreen_dir: str, out_root: str, ori_img_dir: str | 
                            device=None) -> int:
     """Crop a sequence into the ingest layout; returns its frame count.
     JPEGs at quality 95 through native.encode_jpeg: nvJPEG on the card
-    (the default device), libjpeg with device="cpu". With skip_if_done a
-    non-empty unscreen_cropped/ is left as it is."""
+    (the default device), Pillow's bytes with device="cpu". With
+    skip_if_done a non-empty unscreen_cropped/ is left as it is."""
     from harp_tpu_torch.native import encode_jpeg
 
     cropped_dir = os.path.join(out_root, "unscreen_cropped")

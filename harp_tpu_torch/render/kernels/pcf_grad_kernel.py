@@ -31,6 +31,7 @@ import math
 import torch
 
 from harp_tpu_torch.csrc import build
+from harp_tpu_torch.utils.debug_nans import check_kernel
 
 LAUNCHES = {"pcf_scatter": 0}
 
@@ -89,6 +90,7 @@ def pcf_scatter(yc: torch.Tensor, xc: torch.Tensor, upd: torch.Tensor,
                          torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "pcf_scatter")
     LAUNCHES["pcf_scatter"] += 1
+    check_kernel(dpad, "pcf_scatter")
     return dpad
 
 

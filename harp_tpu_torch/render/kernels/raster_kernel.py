@@ -42,6 +42,7 @@ import torch
 
 from harp_tpu_torch.ops.segment import TableOrder, segment_sum
 from harp_tpu_torch.csrc import build
+from harp_tpu_torch.utils import debug_nans
 from harp_tpu_torch.render.rasterizer import (
     RasterConfig, f32, face_pixel_geometry, softplus, tile_pixel_coords,
 )
@@ -186,6 +187,7 @@ def raster_ids(fv9, s_face, start_a, count_a, act_idx, cfg: RasterConfig,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "raster_ids")
     LAUNCHES["raster_ids_soft" if need_soft else "raster_ids_depth"] += 1
+    debug_nans.check_kernel(ssum, "raster_ids")
     return hard, (soft if need_soft else None), (ssum if need_soft else None)
 
 
@@ -320,8 +322,8 @@ def coverage_grad(fv9, s_face, start_a, count_a, act_idx, g, cfg: RasterConfig,
                   keep=None):
     """Per (frame, active tile, slot) the 9 screen-coordinate gradients of
     sum over the tile's pixels of g * coverage log-sum: (B, A, cap, 9) f32.
-    Slots at or beyond a tile's count are left unwritten. keep: as in
-    raster_ids."""
+    Slots at or beyond a tile's count are left unwritten (zeros under
+    --debug-nans). keep: as in raster_ids."""
     B, A = _check_inputs(fv9, s_face, start_a, count_a, act_idx, cfg)
     words = _ballot_words(keep, B, A, cfg, fv9.device)
     P = cfg.tile * cfg.tile
@@ -332,7 +334,11 @@ def coverage_grad(fv9, s_face, start_a, count_a, act_idx, g, cfg: RasterConfig,
     if not g.is_contiguous():
         raise ValueError("g must be contiguous")
     dev = fv9.device
-    out = torch.empty(B, A, cfg.cap, 9, dtype=torch.float32, device=dev)
+    # Under --debug-nans the slots the kernel leaves unwritten are zeros, so
+    # that no stale memory meets the NaN checks (this one, and the gathers
+    # of slot_grads_to_verts, which read such slots before masking them).
+    alloc = torch.zeros if debug_nans.active() else torch.empty
+    out = alloc(B, A, cfg.cap, 9, dtype=torch.float32, device=dev)
     rc = _lib().coverage_grad(
         fv9.data_ptr(), s_face.data_ptr(), start_a.data_ptr(), count_a.data_ptr(),
         act_idx.data_ptr(), g.data_ptr(), B, fv9.shape[1], s_face.shape[1], A,
@@ -340,6 +346,7 @@ def coverage_grad(fv9, s_face, start_a, count_a, act_idx, g, cfg: RasterConfig,
         out.data_ptr(), words, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "coverage_grad")
     LAUNCHES["coverage_grad"] += 1
+    debug_nans.check_kernel(out, "coverage_grad")
     return out
 
 

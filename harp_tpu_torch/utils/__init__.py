@@ -1,1 +1,2 @@
-"""Checkpoint / result IO, JSONL metrics and profiling, PNG visual outputs."""
+"""Checkpoint / result IO, JSONL metrics and profiling, image I/O and visual
+outputs, --debug-nans."""

@@ -242,3 +242,73 @@ def profile_window(run, kernel_names=None) -> dict:
         rec["kernel_counts"] = {k: sum(pat in name for _, _, name in dev_iv)
                                 for k, pat in kernel_names.items()}
     return rec
+
+
+def graph_kernel_counts(graph, kernel_names: dict) -> tuple:
+    """The kernels one replay of a captured CUDA graph launches, read from
+    the graph itself (a torch.cuda.CUDAGraph(keep_graph=True), as the
+    epoch scan and the eval program keep theirs) through the driver API:
+    ({label: the kernel nodes whose demangled function name holds the
+    pattern}, the number of kernel nodes). Child graphs are walked too.
+    Unlike a profiler's trace, this does not depend on every activity
+    record of a replay reaching the trace: CUPTI drops some of the first
+    graph launch after the profiler starts (PERF.md section 6)."""
+    import ctypes
+
+    vp, name_p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p)
+    size_p, int_p = ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int)
+    cu = ctypes.CDLL("libcuda.so.1")
+    for fn, args in (("cuGraphGetNodes", [vp, vp, size_p]), ("cuGraphNodeGetType", [vp, int_p]),
+                     ("cuGraphChildGraphNodeGetGraph", [vp, ctypes.POINTER(vp)]),
+                     ("cuGraphKernelNodeGetParams_v2", [vp, vp]),
+                     ("cuFuncGetName", [name_p, vp]), ("cuKernelGetName", [name_p, vp])):
+        getattr(cu, fn).argtypes = args
+        getattr(cu, fn).restype = ctypes.c_int
+    cxx = ctypes.CDLL("libstdc++.so.6")
+    cxx.__cxa_demangle.argtypes = [ctypes.c_char_p, vp, vp, int_p]
+    cxx.__cxa_demangle.restype = vp
+    libc = ctypes.CDLL(None)
+    libc.free.argtypes = [vp]
+
+    def check(rc: int, what: str) -> None:
+        if rc:
+            raise RuntimeError(f"graph_kernel_counts: {what} failed (CUresult {rc})")
+
+    def demangle(name: bytes) -> str:
+        status = ctypes.c_int()
+        out = cxx.__cxa_demangle(name, None, None, ctypes.byref(status))
+        if status.value or not out:
+            return name.decode()
+        text = ctypes.string_at(out).decode()
+        libc.free(out)
+        return text
+
+    names = []
+
+    def walk(g: int) -> None:
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (vp * n.value)()
+        check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        for node in nodes:
+            kind = ctypes.c_int()
+            check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+            if kind.value == 4:  # CU_GRAPH_NODE_TYPE_GRAPH
+                child = vp()
+                check(cu.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                      "cuGraphChildGraphNodeGetGraph")
+                walk(child.value)
+            elif kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+                # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern (CUkernel) at 56.
+                params = (ctypes.c_uint64 * 16)()
+                check(cu.cuGraphKernelNodeGetParams_v2(node, params),
+                      "cuGraphKernelNodeGetParams")
+                name = ctypes.c_char_p()
+                if params[0]:
+                    check(cu.cuFuncGetName(ctypes.byref(name), params[0]), "cuFuncGetName")
+                else:
+                    check(cu.cuKernelGetName(ctypes.byref(name), params[7]), "cuKernelGetName")
+                names.append(demangle(name.value))
+
+    walk(int(graph.raw_cuda_graph()))
+    return {k: sum(p in nm for nm in names) for k, p in kernel_names.items()}, len(names)

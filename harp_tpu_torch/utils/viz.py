@@ -1,10 +1,17 @@
 """Visual outputs (harp_tpu/utils/viz.py): image grids, red/blue
 silhouette overlays, per-frame GT | pred | normal | overlay composites,
 the texture-map export, and the eval's turntables (render_360), light
-sweep (render_360_light), side-by-side concatenation and GIFs. Images are
-written as PNG by a small writer on zlib and struct and read back by a
-small PNG reader; GIFs by a GIF89a writer with a median-cut palette per
-frame and an LZW encoder (native.gif_lzw): no imaging library is needed.
+sweep (render_360_light), side-by-side concatenation and GIFs.
+
+Images are written by extension with the bytes harp_tpu's Pillow writes:
+.jpg through native.jpeg_bytes (Pillow's default quality 75), .png
+through encode_png (Pillow's row filters and deflate settings, on zlib). PNGs are read
+as Pillow opens and converts them (decode_png, read_rgba / read_rgb /
+read_grey: every bit depth, colour type, palette, tRNS and Adam7), with
+the pixel loops in native.png_pixels; JPEGs through native.decode_jpeg
+(libjpeg's pixels). GIFs are written by a GIF89a writer with a median-cut
+palette per frame and an LZW encoder (native.gif_lzw). No imaging library
+is needed.
 """
 
 from __future__ import annotations
@@ -16,6 +23,11 @@ import zlib
 
 import numpy as np
 import torch
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# Samples a pixel of each PNG colour type, and the bit depths it allows.
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
 def _to_uint8(img) -> np.ndarray:
@@ -32,112 +44,258 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def encode_png(arr: np.ndarray) -> bytes:
     """(H, W) grey, (H, W, 2) grey + alpha, (H, W, 3) RGB or (H, W, 4)
-    RGBA uint8 -> PNG bytes (8 bits, no interlace, filter 0 on every row)."""
+    RGBA uint8 -> the PNG file Pillow's Image.fromarray(arr).save(f, "PNG")
+    writes, byte for byte (8 bits, no interlace): each row takes the first
+    of the filters None, Up, Sub, Paeth whose bytes, read as signed, have
+    the least sum of magnitudes (ZipEncode.c's adaptive choice, which does
+    not try Average); deflate at level 6, memLevel 9, Z_FILTERED; IDAT
+    chunks of max(65536, 4 W) bytes (ImageFile's buffer)."""
     arr = np.ascontiguousarray(arr, np.uint8)
     color = 0 if arr.ndim == 2 else {2: 4, 3: 2, 4: 6}.get(arr.shape[2]) if arr.ndim == 3 else None
     if color is None:
         raise ValueError(f"encode_png takes (H, W) or (H, W, 2 | 3 | 4), got {arr.shape}")
     h, w = arr.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)], 1)
-    return (b"\x89PNG\r\n\x1a\n"
+    bpp = _PNG_CHANNELS[color]
+    x = arr.reshape(h, w * bpp).astype(np.int16)
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    corner = np.zeros_like(x)
+    corner[1:, bpp:] = x[:-1, :-bpp]
+    p = left + up - corner
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, corner))
+    cands = np.stack([x, x - up, x - left, x - paeth]) & 0xFF  # None, Up, Sub, Paeth
+    cost = np.minimum(cands, 256 - cands).sum(-1, dtype=np.int64)
+    pick = np.argmin(cost, 0)  # the first least: Pillow keeps a filter unless one is better
+    rows = np.concatenate([np.array([0, 2, 1, 4], np.int16)[pick][:, None],
+                           cands[pick, np.arange(h)]], 1).astype(np.uint8)
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    data = z.compress(rows.tobytes()) + z.flush()
+    step = max(65536, 4 * w)
+    return (PNG_SIGNATURE
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + b"".join(_chunk(b"IDAT", data[i:i + step]) for i in range(0, len(data), step))
             + _chunk(b"IEND", b""))
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the PNG row filters (None, Sub, Up, Average, Paeth) of h rows
-    of w * bpp bytes, each led by its filter byte."""
-    stride = w * bpp
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int64)
-    pos = 0
-    for y in range(h):
-        ftype, line = raw[pos], np.frombuffer(raw, np.uint8, stride, pos + 1).astype(np.int64)
-        pos += stride + 1
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:  # Sub: a running sum per byte lane
-            cur = np.cumsum(line.reshape(w, bpp), 0).reshape(-1) & 0xFF
-        elif ftype == 2:  # Up
-            cur = (line + prev) & 0xFF
-        elif ftype in (3, 4):  # Average, Paeth: each byte needs its left neighbour
-            cur = line.tolist()
-            up = prev.tolist()
-            for i in range(stride):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = up[i]
-                if ftype == 3:
-                    cur[i] = (cur[i] + ((a + b) >> 1)) & 0xFF
-                else:
-                    c = up[i - bpp] if i >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-                    cur[i] = (cur[i] + pred) & 0xFF
-            cur = np.asarray(cur, np.int64)
-        else:
-            raise ValueError(f"PNG row {y}: unknown filter type {ftype}")
-        out[y] = cur
-        prev = cur
-    return out
-
-
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) grey, (H, W, 2) grey + alpha, (H, W, 3) RGB or
-    (H, W, 4) RGBA uint8: 8 bits per sample, no palette, no interlace."""
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
+def _png_chunks(data: bytes) -> tuple:
+    """(IHDR fields, PLTE, tRNS, the joined IDAT bytes) of a PNG file, with
+    Pillow's checks: the signature, a known bit depth and colour type, and
+    the CRC of each chunk before the first IDAT (Pillow reads the image
+    data and the chunks after it without their CRCs)."""
+    if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+    pos, idat, header, plte, trns = 8, [], None, None, None
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if len(body) < n:
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        if not idat and kind != b"IDAT":
+            crc = data[pos + 8 + n:pos + 12 + n]
+            if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
+                raise ValueError(f"broken PNG file (bad checksum in {kind!r})")
         pos += 12 + n
         if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
+            if n < 13:
+                raise ValueError("truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
     if header is None:
         raise ValueError("PNG without IHDR")
+    _, _, depth, color, _, filt, _ = header
+    if depth not in _PNG_DEPTHS.get(color, ()):
+        raise ValueError(f"PNG with bit depth {depth} and colour type {color}: not a PNG mode")
+    if filt:
+        raise ValueError("PNG with an unknown filter method")
+    if not idat:
+        raise ValueError("PNG without image data")
+    return header, plte, trns, b"".join(idat)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> its samples, as stored: (H, W) for grey or palette
+    indices, (H, W, 2 | 3 | 4) for grey + alpha, RGB, RGBA; uint8 holding
+    the sample values of a 1-, 2-, 4- or 8-bit file (not scaled), uint16
+    for a 16-bit one. Every bit depth, colour type and interlace, through
+    native.png_pixels; read_rgba / read_rgb / read_grey give the pixels
+    as Pillow converts them."""
+    header, _, _, idat = _png_chunks(data)
+    return _png_samples(header, idat)
+
+
+def _png_samples(header: tuple, idat: bytes) -> np.ndarray:
+    from harp_tpu_torch.native import png_pixels
+
     w, h, depth, color, _, _, interlace = header
-    channels = {0: 1, 4: 2, 2: 3, 6: 4}.get(color)
-    if depth != 8 or channels is None or interlace:
-        raise ValueError(f"PNG with bit depth {depth}, colour type {color}, interlace "
-                         f"{interlace}: only 8-bit grey / RGB(A), not interlaced")
-    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w, channels)
-    return pix.reshape(h, w) if channels == 1 else pix.reshape(h, w, channels)
+    try:
+        raw = zlib.decompressobj().decompress(idat)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data is corrupt: {e}") from e
+    pix = png_pixels(raw, h, w, depth, _PNG_CHANNELS[color], interlace)
+    return pix[..., 0] if pix.shape[2] == 1 else pix
 
 
-def read_grey(path: str) -> np.ndarray:
-    """A PNG as one grey channel in [0, 1], float32: grey as it is, colour
-    by PIL's convert("L") (ITU-R 601-2 luma, 16-bit fixed point; alpha
-    ignored)."""
+def _open_png(data: bytes) -> tuple:
+    """(mode, pixels, palette, transparency) of a PNG as Pillow 12 opens it
+    (PngImagePlugin): mode "1" (0 / 255), "L" (sub-byte samples scaled to
+    0..255), "I;16", "RGB", "P", "LA" or "RGBA", where 16-bit colour keeps
+    each sample's high byte and 16-bit grey + alpha opens as RGBA. palette:
+    (256, 4) RGBA for "P" (the PLTE entries, alpha from tRNS, the entries
+    past PLTE black and opaque). transparency: tRNS's key for "1" (0 or
+    255), "L", "I;16" (an int) and "RGB" (a tuple of three); None without
+    one, and for the other modes."""
+    header, plte, trns, idat = _png_chunks(data)
+    depth, color = header[2:4]
+    pix = _png_samples(header, idat)
+    key = None
+    if color == 3:
+        palette = np.zeros((256, 4), np.uint8)
+        palette[:, 3] = 255
+        if plte:
+            entries = np.frombuffer(plte[:3 * min(len(plte) // 3, 256)], np.uint8)
+            palette[:len(entries) // 3, :3] = entries.reshape(-1, 3)
+        if trns:
+            alpha = np.frombuffer(trns[:256], np.uint8)
+            palette[:len(alpha), 3] = alpha
+        return "P", pix, palette, None
+    if trns is not None and color in (0, 2) and len(trns) >= 2 * _PNG_CHANNELS[color]:
+        vals = struct.unpack(">%dH" % _PNG_CHANNELS[color], trns[:2 * _PNG_CHANNELS[color]])
+        key = vals[0] if color == 0 else vals
+    if color == 0:
+        if depth == 1:
+            return "1", pix * np.uint8(255), None, key if key is None else 255 * (key != 0)
+        if depth == 16:
+            return "I;16", pix, None, key
+        return "L", pix * np.uint8(255 // (2 ** depth - 1)), None, key
+    hi = (pix >> 8).astype(np.uint8) if depth == 16 else pix
+    if color == 2:
+        return "RGB", hi, None, key
+    if color == 4 and depth == 16:  # opens as RGBA: grey to R, G and B
+        return "RGBA", np.concatenate([np.repeat(hi[..., :1], 3, 2), hi[..., 1:]], 2), None, None
+    if color == 4:
+        return "LA", hi, None, None
+    return "RGBA", hi, None, None
+
+
+def _luma(rgb: np.ndarray) -> np.ndarray:
+    """Pillow's convert("L") of RGB: ITU-R 601-2 luma in 16-bit fixed point."""
+    rgb = rgb.astype(np.int64)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+
+
+def _png_convert(data: bytes, to: str) -> np.ndarray:
+    """A PNG's pixels as Pillow 12's Image.open(f).convert(to) gives them,
+    to "RGBA" (H, W, 4), "RGB" (H, W, 3) or "L" (H, W), uint8. A key colour
+    (tRNS of grey or RGB) makes alpha 0 where the pixel, as converted to
+    8 bits, equals the key's low byte(s), as Pillow's convert_transparent
+    compares them."""
+    mode, pix, palette, key = _open_png(data)
+    if mode == "P":
+        rgba = palette[pix]
+        return rgba if to == "RGBA" else rgba[..., :3] if to == "RGB" else _luma(rgba)
+    if mode == "I;16":
+        mode, pix = "L", np.minimum(pix, 255).astype(np.uint8)
+    if mode in ("1", "L"):
+        if to == "L":
+            return pix
+        rgb = np.repeat(pix[..., None], 3, 2)
+    elif mode == "LA":
+        if to == "L":
+            return pix[..., 0]
+        rgb = np.repeat(pix[..., :1], 3, 2)
+    else:
+        if to == "L":
+            return _luma(pix)
+        rgb = pix[..., :3]
+    if to == "RGB":
+        return np.ascontiguousarray(rgb)
+    if mode == "RGBA":
+        return pix
+    if mode == "LA":
+        alpha = pix[..., 1]
+    elif key is not None:
+        want = np.asarray(key if isinstance(key, tuple) else (key,) * 3) & 0xFF
+        alpha = np.where((rgb == want).all(-1), 0, 255).astype(np.uint8)
+    else:
+        alpha = np.full(rgb.shape[:2], 255, np.uint8)
+    return np.concatenate([rgb, alpha[..., None]], 2)
+
+
+def _read_bytes(path) -> bytes:
     with open(path, "rb") as f:
-        img = decode_png(f.read()).astype(np.int64)
-    if img.ndim == 3:
-        if img.shape[2] <= 2:
-            img = img[..., 0]
-        else:
-            img = (img[..., 0] * 19595 + img[..., 1] * 38470 + img[..., 2] * 7471
-                   + 0x8000) >> 16
-    return img.astype(np.float32) / 255.0
+        return f.read()
+
+
+def _is_jpeg(path) -> bool:
+    return os.fspath(path).lower().endswith((".jpg", ".jpeg"))
+
+
+def read_rgba(path) -> np.ndarray:
+    """A PNG or JPEG file as (H, W, 4) uint8, as Pillow's
+    Image.open(path).convert("RGBA") gives it (a JPEG: libjpeg's pixels,
+    alpha 255)."""
+    if _is_jpeg(path):
+        rgb = read_rgb(path)
+        return np.concatenate([rgb, np.full_like(rgb[..., :1], 255)], 2)
+    return _png_convert(_read_bytes(path), "RGBA")
+
+
+def read_rgb(path) -> np.ndarray:
+    """A PNG or JPEG file as (H, W, 3) uint8, as Pillow's
+    Image.open(path).convert("RGB") gives it (a JPEG through
+    native.decode_jpeg, libjpeg's pixels)."""
+    if _is_jpeg(path):
+        from harp_tpu_torch.native import decode_jpeg
+
+        img = decode_jpeg(_read_bytes(path))
+        return np.repeat(img[..., None], 3, 2) if img.ndim == 2 else img
+    return _png_convert(_read_bytes(path), "RGB")
+
+
+def read_grey(path) -> np.ndarray:
+    """A PNG as one channel in [0, 1], float32: Pillow's convert("L")
+    (ITU-R 601-2 luma of colour, 16-bit fixed point; alpha ignored) over
+    255, as harp_tpu reads its uv masks."""
+    return _png_convert(_read_bytes(path), "L").astype(np.float32) / 255.0
 
 
 def save_image(img, path: str) -> None:
-    """A float image in [0, 1] or a uint8 image as PNG; `path` must end in
-    .png."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"save_image writes PNG only: {path}")
+    """A float image in [0, 1] (clipped, then * 255 truncated) or a uint8
+    image, (H, W) grey stacked to RGB as harp_tpu stacks it, written by
+    the path's extension as harp_tpu's Pillow writes it: .jpg / .jpeg as
+    Pillow's default JPEG (quality 75, the same bytes), .png as PNG."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in (".jpg", ".jpeg", ".png"):
+        raise ValueError(f"save_image writes .jpg and .png: {path}")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    arr = _to_uint8(img)
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, -1)
+    if ext == ".png":
+        data = encode_png(arr)
+    else:
+        from harp_tpu_torch.native import jpeg_bytes
+
+        data = jpeg_bytes(arr, 75)
     with open(path, "wb") as f:
-        f.write(encode_png(_to_uint8(img)))
+        f.write(data)
 
 
 def save_images_parallel(items, workers: int = 8) -> None:
-    """Write many (image, path) pairs on a thread pool (zlib releases the
-    interpreter lock while it compresses)."""
+    """Write many (image, path) pairs on a thread pool (the JPEG codec,
+    called through ctypes, and zlib release the interpreter lock while
+    they encode)."""
     from concurrent.futures import ThreadPoolExecutor
 
     items = list(items)
@@ -295,21 +453,6 @@ def _gif_frame(rgb: np.ndarray, delay_cs: int) -> bytes:
             + b"\x08" + _sub_blocks(gif_lzw(idx)))
 
 
-def _read_rgb(path: str, device=None) -> np.ndarray:
-    """A PNG (decode_png) or JPEG (native's decoder: libjpeg on the host
-    for a CPU device, nvJPEG on the card) as (H, W, 3) uint8."""
-    if path.lower().endswith(".png"):
-        with open(path, "rb") as f:
-            img = decode_png(f.read())
-        if img.ndim == 2:
-            img = img[..., None]
-        return np.repeat(img[..., :1], 3, 2) if img.shape[2] <= 2 else img[..., :3]
-    from harp_tpu_torch.native import decode_jpeg_batch
-
-    x = decode_jpeg_batch([path], device=device)[0]
-    return torch.round(x * 255.0).to(torch.uint8).cpu().numpy()
-
-
 def write_gif(frames, out_path: str, duration_ms: int = 100) -> None:
     """(N, H, W, 3) uint8 frames as a looping GIF89a at duration_ms a
     frame, quantised and encoded on a thread pool."""
@@ -326,27 +469,27 @@ def write_gif(frames, out_path: str, duration_ms: int = 100) -> None:
 
 
 def save_gif(in_dir: str, out_path: str, duration_ms: int = 100) -> None:
-    """The sorted *.png frames of in_dir as a looping GIF89a at
-    duration_ms a frame (nothing when there are none)."""
-    paths = sorted(glob.glob(os.path.join(in_dir, "*.png")))
+    """The sorted *.jpg frames of in_dir, decoded as Pillow decodes them
+    (native.decode_jpeg), as a looping GIF89a at duration_ms a frame
+    (nothing when there are none), as harp_tpu builds its GIFs."""
+    paths = sorted(glob.glob(os.path.join(in_dir, "*.jpg")))
     if paths:
-        write_gif([_read_rgb(p) for p in paths], out_path, duration_ms)
+        write_gif([read_rgb(p) for p in paths], out_path, duration_ms)
 
 
-def concat_image_dirs(dir1: str, dir2: str, out_dir: str, device=None) -> None:
-    """Side by side, the i-th sorted .jpg / .png of dir1 and of dir2, as
-    out_dir/%04d.png, and their GIF out_dir/out.gif. device: where a .jpg
-    is decoded (native.decode_jpeg_batch)."""
+def concat_image_dirs(dir1: str, dir2: str, out_dir: str) -> None:
+    """Side by side, the i-th sorted .jpg / .png of dir1 and of dir2 (read
+    on the host as Pillow's convert("RGB") reads them), as
+    out_dir/%04d.jpg, and the GIF of those JPEGs, out_dir/out.gif."""
     os.makedirs(out_dir, exist_ok=True)
 
     def listing(d):
         return sorted(p for p in glob.glob(os.path.join(d, "*")) if p.endswith((".jpg", ".png")))
 
-    frames = [np.concatenate([_read_rgb(a, device), _read_rgb(b, device)], 1)
-              for a, b in zip(listing(dir1), listing(dir2))]
-    save_images_parallel((f, os.path.join(out_dir, "%04d.png" % i)) for i, f in enumerate(frames))
-    if frames:
-        write_gif(frames, os.path.join(out_dir, "out.gif"))
+    save_images_parallel((np.concatenate([read_rgb(a), read_rgb(b)], 1),
+                          os.path.join(out_dir, "%04d.jpg" % i))
+                         for i, (a, b) in enumerate(zip(listing(dir1), listing(dir2))))
+    save_gif(out_dir, os.path.join(out_dir, "out.gif"))
 
 
 # ---------------------------------------------------------------------------
@@ -507,11 +650,11 @@ def render_360(params, fid, assets, config, rcfg, out_dir: str, render_normal: b
                use_shadow: bool = False, views_per_axis: int = 36, chunk: int = 8,
                counters: dict | None = None, extras: dict | None = None) -> str:
     """The turntable (turntable_views) as {out_dir}/render_360[_normal]/
-    %04d.png (about Y) and h_%04d.png (about X) plus out.gif; returns
-    that directory. use_shadow is accepted and unused, as in harp_tpu: the
-    turntable renders without shadow. Raises if a raster pass still
-    truncated a view; counters, when given, receives the overflow counts
-    and the rerenders."""
+    %04d.jpg (about Y) and h_%04d.jpg (about X) plus out.gif, the GIF of
+    those JPEGs; returns that directory. use_shadow is accepted and
+    unused, as in harp_tpu: the turntable renders without shadow. Raises
+    if a raster pass still truncated a view; counters, when given,
+    receives the overflow counts and the rerenders."""
     sub = "render_360_normal" if render_normal else "render_360"
     out = os.path.join(out_dir, sub)
     local: dict = {}
@@ -520,9 +663,9 @@ def render_360(params, fid, assets, config, rcfg, out_dir: str, render_normal: b
     _check_counters(local, "render_360", counters)
     save_images_parallel(
         (imgs[i], os.path.join(out, ("" if i < views_per_axis else "h_")
-                               + "%04d.png" % (i % views_per_axis)))
+                               + "%04d.jpg" % (i % views_per_axis)))
         for i in range(2 * views_per_axis))
-    write_gif(imgs, os.path.join(out, "out.gif"))
+    save_gif(out, os.path.join(out, "out.gif"))
     return out
 
 
@@ -530,13 +673,13 @@ def render_360_light(params, fid, assets, config, rcfg, out_dir: str, num: int =
                      z_range=(-5.0, 5.0), chunk: int = 8, counters: dict | None = None,
                      extras: dict | None = None) -> str:
     """The light sweep (light_sweep_views) as {out_dir}/render_360_light/
-    %04d.png plus out.gif; returns that directory. Raises and counts as
-    render_360 does."""
+    %04d.jpg plus out.gif, the GIF of those JPEGs; returns that directory.
+    Raises and counts as render_360 does."""
     out = os.path.join(out_dir, "render_360_light")
     local: dict = {}
     imgs = light_sweep_views(params, fid, assets, config, rcfg, num, z_range, chunk, local,
                              extras).cpu().numpy()
     _check_counters(local, "render_360_light", counters)
-    save_images_parallel((imgs[i], os.path.join(out, "%04d.png" % i)) for i in range(num))
-    write_gif(imgs, os.path.join(out, "out.gif"))
+    save_images_parallel((imgs[i], os.path.join(out, "%04d.jpg" % i)) for i in range(num))
+    save_gif(out, os.path.join(out, "out.gif"))
     return out

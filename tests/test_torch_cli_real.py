@@ -201,11 +201,11 @@ def test_cli_fit_matches_harp_tpus_fit_sequence(root, run):
 
 def test_cli_writes_the_image_and_val_logs_and_evaluates_val(run):
     out, stats = run["out"], run["stats"]
-    for name in ("sil_0000.png", "0000.png", "val_0000.png", "uv_0000.png", "normal_0000.png",
+    for name in ("sil_0000.jpg", "0000.jpg", "val_0000.jpg", "uv_0000.jpg", "normal_0000.jpg",
                  "saved_params.pkl", "fit_summary.json", os.path.join("val", "eval_results.txt"),
-                 os.path.join("val", "rendered_after_opt", "0001.png")):
+                 os.path.join("val", "rendered_after_opt", "0001.jpg")):
         assert os.path.exists(out / name), name
-    assert not os.path.exists(out / "sil_0001.png")  # every 10 epochs
+    assert not os.path.exists(out / "sil_0001.jpg")  # every 10 epochs
     with open(out / "fit_summary.json") as f:
         summary = json.load(f)
     for k in ("Silhouette IoU", "L1", "MS_SSIM"):

@@ -3,7 +3,9 @@ the bilinear resize, the centre crop, the white-background paste, one
 frame, and a whole sequence written as JPEG. Every array is held bit for
 bit, over a hypothesis sweep of sizes (up- and down-scaling, portrait and
 landscape, odd sizes) and both modes ("L" and "RGB"); the JPEG files too
-(both write through libjpeg at quality 95 on the CPU).
+(quality 95: Pillow's libjpeg and the port's jpeg_codec.cpp write the same
+bytes). Frames of any PNG mode (palette, 16-bit, interlaced) crop as
+harp_tpu crops them.
 """
 
 import os
@@ -74,8 +76,8 @@ def _soft_alpha(h, w, seed):
 
 
 def _write_frames(tmp_path, sizes, pil_writer: bool):
-    """RGBA unscreen frames (soft alpha) and their RGB originals; PIL's
-    writer (its own per-row filters) or the port's (filter 0)."""
+    """RGBA unscreen frames (soft alpha) and their RGB originals, written by
+    PIL or by the port's encode_png (which writes PIL's bytes)."""
     un, ori = tmp_path / "unscreen", tmp_path / "ori"
     un.mkdir()
     ori.mkdir()
@@ -119,7 +121,7 @@ def test_crop_reads_rgb_and_grey_frames_as_pillows_rgba(tmp_path):
 
 
 def test_crop_unscreen_sequence_writes_harp_tpus_files(tmp_path):
-    """Both write through libjpeg at quality 95: the same bytes."""
+    """Pillow's libjpeg and jpeg_codec.cpp at quality 95: the same bytes."""
     un, ori = _write_frames(tmp_path, [(80, 56)] * 3, pil_writer=True)
     n_want = JC.crop_unscreen_sequence(un, str(tmp_path / "want"), ori_img_dir=ori, res=32)
     n_got = crop_unscreen_sequence(un, str(tmp_path / "got"), ori_img_dir=ori, res=32,
@@ -135,16 +137,39 @@ def test_crop_unscreen_sequence_writes_harp_tpus_files(tmp_path):
     assert crop_unscreen_sequence(un, str(tmp_path / "got"), res=32, device="cpu") == 3
 
 
-def test_crop_refuses_what_it_cannot_read(tmp_path):
-    img = _image(12, 10, 3, 0)
-    Image.fromarray(img).convert("P").save(tmp_path / "pal.png")
+def test_crop_reads_palette_deep_and_interlaced_pngs_and_refuses_what_pillow_cannot(
+        tmp_path):
+    """A palette frame (with tRNS: its alpha is the mask), a 16-bit grey
+    frame and 16-bit RGBA original, and an interlaced RGBA frame: the same
+    bits as harp_tpu's crop_frame. A PNG with a broken IHDR checksum is
+    refused, as Pillow refuses it; so is a file that is neither PNG nor
+    JPEG (the port's own limit: Pillow would read a BMP)."""
+    from test_torch_image_io import make_png
+
+    img = _image(30, 22, 3, 0)
+    alpha = _soft_alpha(30, 22, 0)
+    pal = Image.fromarray(img).quantize(64)
+    pal.info["transparency"] = bytes(np.arange(0, 256, 4, dtype=np.uint8))
+    pal.save(tmp_path / "pal.png")
     Image.fromarray(img[..., 0].astype(np.uint16) * 257).save(tmp_path / "deep.png")
-    data = bytearray(viz.encode_png(img))
-    data[28] = 1  # IHDR's interlace byte (its CRC is not checked)
-    (tmp_path / "inter.png").write_bytes(bytes(data))
+    deep_rgba = np.concatenate([img, alpha[..., None]], 2).astype(np.uint16) * 257 + 3
+    (tmp_path / "deep_rgba.png").write_bytes(make_png(deep_rgba, 16, 6))
+    (tmp_path / "inter.png").write_bytes(
+        make_png(np.concatenate([img, alpha[..., None]], 2), 8, 6, interlace=1))
+    for name, ori in (("pal.png", None), ("deep.png", "deep_rgba.png"), ("inter.png", None),
+                      ("inter.png", "pal.png")):
+        path, ori_path = str(tmp_path / name), ori and str(tmp_path / ori)
+        want_rgb, want_mask = JC.crop_frame(path, ori_path, 16)
+        rgb, mask = crop_frame(path, ori_path, 16, device="cpu")
+        np.testing.assert_array_equal(rgb.numpy(), want_rgb, err_msg=name)
+        np.testing.assert_array_equal(mask.numpy(), want_mask, err_msg=name)
+    broken = bytearray(viz.encode_png(img))
+    broken[29] ^= 1  # IHDR's CRC
+    (tmp_path / "broken.png").write_bytes(bytes(broken))
+    with pytest.raises(Exception):
+        JC.crop_frame(str(tmp_path / "broken.png"), None, 8)
     Image.fromarray(img).save(tmp_path / "frame.bmp")
-    for name, match in (("pal.png", "with a palette"), ("deep.png", "with bit depth 16"),
-                        ("inter.png", "with interlace"),
+    for name, match in (("broken.png", "bad checksum"),
                         ("frame.bmp", "PNG and JPEG frames only")):
         with pytest.raises(ValueError, match=match):
             crop_frame(str(tmp_path / name), None, 8, device="cpu")
@@ -155,7 +180,7 @@ def test_crop_reads_jpeg_frames_as_pillows_rgba(tmp_path, pil_writer):
     """A .jpg unscreen frame (list_frames returns them) and a .jpg original,
     RGB and grey: decoded by libjpeg with alpha 255, as Pillow's
     convert("RGBA") reads them; the same bits as harp_tpu's crop_frame.
-    The JPEGs are Pillow's or the port's own (libjpeg at quality 95)."""
+    The JPEGs are Pillow's or the port's own (quality 95)."""
     from harp_tpu_torch.native import encode_jpeg
 
     un = tmp_path / "unscreen"

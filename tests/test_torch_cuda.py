@@ -188,6 +188,22 @@ def test_segment_sum_kernel_matches_plain_and_repeats_bit_equal(cuda, C):
     assert sg.LAUNCHES["segment_sum"] == before + 2
 
 
+def test_debug_nans_checks_a_kernels_outputs_on_the_card(cuda):
+    """--debug-nans on the card: the dispatch mode does not see what a
+    kernel writes through ctypes, so the wrapper checks its outputs; a NaN
+    in segment_sum's values raises naming the kernel, a clean call passes."""
+    from harp_tpu_torch.utils.debug_nans import DebugNans
+
+    order = sg.SegmentOrder(torch.tensor([0, 1, 1, 2], device=cuda), 3)
+    vals = torch.ones(4, 2, device=cuda)
+    bad = vals.clone()
+    bad[1, 0] = float("nan")
+    with DebugNans():
+        assert torch.equal(sg.segment_sum(vals, order)[:, 0].cpu(), torch.tensor([1., 2., 1.]))
+        with pytest.raises(FloatingPointError, match="in segment_sum"):
+            sg.segment_sum(bad, order)
+
+
 def _dirty_allocator(cuda, nbytes):
     """Leave NaNs in the caching allocator's next block of this size, so a
     row the kernel fails to write shows."""
@@ -573,8 +589,8 @@ def test_real_data_fit_with_logs_repeats_bit_equal(cuda, tmp_path, monkeypatch):
     saved = []
     for run in ("a", "b"):
         main(argv + ["--out", run])
-        for name in ("sil_0000.png", "0000.png", "val_0000.png", "uv_0000.png",
-                     "normal_0000.png", "fit_summary.json"):
+        for name in ("sil_0000.jpg", "0000.jpg", "val_0000.jpg", "uv_0000.jpg",
+                     "normal_0000.jpg", "fit_summary.json"):
             assert (tmp_path / run / name).exists(), name
         with open(tmp_path / run / "saved_params.pkl", "rb") as f:
             saved.append(pickle.load(f))

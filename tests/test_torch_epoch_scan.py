@@ -173,7 +173,7 @@ def test_scan_defers_logs_and_checkpoints_to_harp_tpus_labels(both):
     def logged(out_dir, ext):
         return sorted(f[:-len(ext)] for f in os.listdir(out_dir) if f.endswith(ext))
 
-    assert logged(both["out"], ".png") == logged(both["jout"], ".jpg") == [
+    assert logged(both["out"], ".jpg") == logged(both["jout"], ".jpg") == [
         "0001", "0003", "0006", "sil_0001", "sil_0003", "sil_0006"]
     assert both["labels"]["port"] == sorted(both["labels"]["jax"]) == [3, 6]
     lines = _metrics(both["out"])

@@ -1,5 +1,5 @@
-"""harp_tpu_torch's eval metrics, eval renders, evaluate_sequence, PNG
-writer and CLI, on CPU.
+"""harp_tpu_torch's eval metrics, eval renders, evaluate_sequence (and its
+files against harp_tpu's), PNG writer, CLI and --debug-nans, on CPU.
 
 Metrics and renders take the same numpy-seeded inputs in both packages.
 Tolerances: IoU equal; L1, SSIM, MS-SSIM and the perceptual proxy rtol
@@ -206,7 +206,7 @@ def test_evaluate_sequence_on_gt_params(scene, tmp_path):
     assert stats["Silhouette IoU"] > 0.9
     assert stats["L1"] < 0.01 and stats["MS_SSIM"] > 0.9
     names = sorted(os.listdir(tmp_path / "rendered_after_opt"))
-    assert names == ["0000.png", "0001.png"]
+    assert names == ["0000.jpg", "0001.jpg"]
     assert (tmp_path / "uv_out" / "texture.png").exists()
     assert (tmp_path / "uv_out" / "final_mesh.obj").exists()
     assert (tmp_path / "eval_results.txt").exists()
@@ -268,7 +268,50 @@ def test_png_writer_reads_back():
         back = np.asarray(PIL.open(io.BytesIO(viz.encode_png(arr))))
         np.testing.assert_array_equal(back, arr)
     with pytest.raises(ValueError):
-        viz.save_image(np.zeros((2, 2, 3)), "frame.jpg")
+        viz.save_image(np.zeros((2, 2, 3)), "frame.gif")
+
+
+def test_evaluate_sequence_writes_harp_tpus_files(scene, tmp_path):
+    """harp_tpu's evaluate_sequence and the port's on the same GT sequence
+    (self-shadowed): the same tree of files; each composite the bytes
+    harp_tpu's save_image writes of the port's uint8 composite; the
+    texture maps (the same arrays in both packages) the same bytes."""
+    import dataclasses
+
+    from harp_tpu.fit import evaluate as JE
+    from harp_tpu.fit.driver import FitData as JFitData
+    from harp_tpu.fit.params import init_params as jinit_params
+    from harp_tpu.utils import viz as jviz
+    from harp_tpu_torch.fit.evaluate import make_eval_program
+
+    jconfig = dataclasses.replace(scene["jconfig"], self_shadow=True)
+    config = dataclasses.replace(scene["config"], self_shadow=True)
+    images, masks, masks_er, jgt, jinit = jmake_sequence(scene["jassets"], jconfig,
+                                                         scene["jrcfg"], n_frames=2, seed=0)
+    _, jaux = jinit_params(jinit, scene["jassets"], jconfig)
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    JE.evaluate_sequence(jconfig, scene["jassets"], JFitData(images, masks, masks_er), jgt,
+                         jaux, rcfg=scene["jrcfg"], out_dir=str(jdir))
+    data = FitData(*(torch.from_numpy(np.array(x)) for x in (images, masks, masks_er)))
+    params = params_from_numpy({k: np.asarray(v) for k, v in jgt.items()}, "cpu")
+    _, aux = init_params({k: np.asarray(v) for k, v in jinit.items()}, scene["assets"], config,
+                         device="cpu")
+    evaluate_sequence(config, scene["assets"], data, params, aux, rcfg=scene["rcfg"],
+                      out_dir=str(pdir), device="cpu")
+
+    def tree(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d)
+                      for f in fs)
+
+    assert tree(pdir) == tree(jdir)
+    prog, _ = make_eval_program(config, scene["assets"], data, scene["rcfg"], device="cpu")
+    comps = prog(params, data.images, data.masks)[4].numpy()
+    for f in range(2):
+        name = os.path.join("rendered_after_opt", "%04d.jpg" % f)
+        jviz.save_image(comps[f], str(tmp_path / "want.jpg"))
+        assert (pdir / name).read_bytes() == (tmp_path / "want.jpg").read_bytes(), name
+    for name in ("texture.png", "normal_map.png"):
+        assert (pdir / "uv_out" / name).read_bytes() == (jdir / "uv_out" / name).read_bytes()
 
 
 def test_viz_helpers_lay_out_images():
@@ -296,10 +339,10 @@ def test_cli_runs_a_tiny_synthetic_fit_on_cpu(tmp_path):
     for name in ("config.yaml", "metrics.jsonl", "saved_params.pkl", "eval_results.txt"):
         assert os.path.exists(os.path.join(out, name)), name
     # The turntables are on by default, as in harp_tpu's CLI.
-    views = [f"{p}{i:04d}.png" for p in ("", "h_") for i in range(36)]
+    views = [f"{p}{i:04d}.jpg" for p in ("", "h_") for i in range(36)]
     for sub, names in (("render_360", views), ("render_360_normal", views),
-                       ("render_360_combine", [f"{i:04d}.png" for i in range(72)]),
-                       ("render_360_light", [f"{i:04d}.png" for i in range(40)])):
+                       ("render_360_combine", [f"{i:04d}.jpg" for i in range(72)]),
+                       ("render_360_light", [f"{i:04d}.jpg" for i in range(40)])):
         assert sorted(os.listdir(os.path.join(out, sub))) == sorted(names + ["out.gif"]), sub
     assert stats["eval_turntables_s"] > 0 and stats["turntable_bin_overflow"] == 0
 
@@ -322,29 +365,45 @@ def test_cli_runs_a_tiny_synthetic_arm_fit_on_cpu(tmp_path):
         cfg = f.read()
     assert "use_arm: true" in cfg and "raster_span_tiles: 4" in cfg  # the arm's budget
     for name in ("metrics.jsonl", "saved_params.pkl", "eval_results.txt",
-                 os.path.join("rendered_after_opt", "0001.png")):
+                 os.path.join("rendered_after_opt", "0001.jpg")):
         assert os.path.exists(os.path.join(out, name)), name
 
 
 def test_cli_debug_nans_fits_under_anomaly_mode(monkeypatch, tmp_path):
-    """--debug-nans: the fit runs under torch's anomaly mode with its NaN
-    check (off without the flag)."""
-    from harp_tpu_torch.fit import driver
+    """--debug-nans: the fit runs under utils/debug_nans.DebugNans and,
+    beside it, torch's anomaly mode with its NaN check; the eval runs under
+    DebugNans, eagerly, and finds no NaN in a clean eval. Without the flag,
+    neither mode."""
+    from harp_tpu_torch.fit import driver, evaluate
     from harp_tpu_torch.fit_avatar import main
+    from harp_tpu_torch.utils import debug_nans
 
     seen = []
+    real_eval = evaluate.evaluate_sequence
 
-    def fit_sequence(*args, **kwargs):
-        seen.append((torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()))
-        raise KeyboardInterrupt  # stop before the fit
+    def fit_sequence(config, assets, data, params, *args, **kwargs):
+        seen.append((torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled(),
+                     debug_nans.active()))
+        if not debug_nans.active():
+            raise KeyboardInterrupt  # stop before the fit
+        return params, []
+
+    def evaluate_sequence(*args, **kwargs):
+        seen.append(("eval", debug_nans.active(), kwargs["eval_program"].use_graph))
+        return real_eval(*args, **kwargs)
 
     monkeypatch.setattr(driver, "fit_sequence", fit_sequence)
+    monkeypatch.setattr(evaluate, "evaluate_sequence", evaluate_sequence)
     argv = ["--synthetic", "--device", "cpu", "--n-frames", "2", "--img-size", "32",
-            "--texture-size", "16", "--density", "light", "--out", str(tmp_path)]
-    for flags in (["--debug-nans"], []):
-        with pytest.raises(KeyboardInterrupt):
-            main(argv + flags)
-    assert seen == [(True, True), (False, True)] and not torch.is_anomaly_enabled()
+            "--texture-size", "16", "--density", "light", "--raster-cap", "2048",
+            "--no-turntables",
+            "--out", str(tmp_path)]
+    stats = main(argv + ["--debug-nans"])
+    assert 0.0 < stats["Silhouette IoU"] <= 1.0
+    with pytest.raises(KeyboardInterrupt):
+        main(argv)
+    assert seen == [(True, True, True), ("eval", True, False), (False, True, False)]
+    assert not torch.is_anomaly_enabled() and not debug_nans.active()
 
 
 def test_cli_refuses_what_is_not_ported_and_needs_a_device(monkeypatch, tmp_path):

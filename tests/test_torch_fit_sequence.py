@@ -233,3 +233,46 @@ def test_raster_budget_of_the_scene_has_no_overflow(scene):
         out = raster_compact(screen, scene["assets"].render_faces, scene["rcfg"])
     for k in ("bin_overflow", "active_overflow", "span_overflow"):
         assert int(out[k].sum()) == 0, k
+
+
+def test_debug_nans_raises_at_the_first_nan_forward_and_backward(scene):
+    """--debug-nans in both packages: a NaN injected into the pose makes
+    the 32^2 forward raise FloatingPointError (harp_tpu: jax_debug_nans;
+    the port: utils/debug_nans.DebugNans, naming the operation). A clean
+    forward whose backward makes a NaN (the norm of a zero vector) raises
+    in the backward, naming its operation. Infinities pass; a kernel
+    wrapper's check_kernel raises only while the mode is active."""
+    from harp_tpu.render import pipeline as jpipeline
+    from harp_tpu_torch.utils.debug_nans import DebugNans, check_kernel
+
+    jparams, _ = jinit_params(scene["init"], scene["jassets"], scene["jconfig"])
+    jparams = dict(jparams, pose=jparams["pose"].at[0, 0].set(jnp.nan))
+    with jax.debug_nans(True), pytest.raises(FloatingPointError):
+        jpipeline.mesh_forward(jparams, jnp.arange(2), scene["jassets"], scene["jconfig"])
+    params, _ = init_params(scene["init"], scene["assets"], scene["config"], device="cpu")
+    with torch.no_grad():
+        params["pose"][0, 0] = float("nan")
+    with DebugNans(), pytest.raises(FloatingPointError, match=r"encountered in aten\."):
+        pipeline.mesh_forward(params, torch.arange(2), scene["assets"], scene["config"])
+    params, _ = init_params(scene["init"], scene["assets"], scene["config"], device="cpu")
+    disps = params["verts_disps"].requires_grad_(True)  # zeros
+    with DebugNans():
+        verts, _ = pipeline.mesh_forward(params, torch.arange(2), scene["assets"],
+                                         scene["config"])
+        loss = verts.sum() + torch.linalg.vector_norm(disps)
+        with pytest.raises(FloatingPointError, match=r"encountered in aten\.\w+"):
+            loss.backward()
+        assert torch.isinf(torch.ones(1) / 0).all()
+        with pytest.raises(FloatingPointError, match="in segment_sum"):
+            check_kernel(torch.tensor([0.0, float("nan")]), "segment_sum")
+    check_kernel(torch.tensor([float("nan")]), "segment_sum")  # inactive: no check
+
+
+def test_a_clean_fit_under_debug_nans_is_the_same_bits(scene, both):
+    from harp_tpu_torch.utils.debug_nans import DebugNans
+
+    with DebugNans():
+        params, hist = _port_fit(scene)
+    assert [h["loss"] for h in hist] == [h["loss"] for h in both["hist"]]
+    for k, v in both["params"].items():
+        assert torch.equal(params[k], v), k

@@ -1,9 +1,9 @@
 """harp_tpu_torch stands alone: importing every one of its modules
 (parallel/, fit/batch.py, utils/orbax_io.py, preprocess/crop.py, the
 leaf modules losses/smooth.py, models/unet.py, utils/opt_utils.py and
-utils/fh_utils.py, and graft_entry.py among them) loads neither
-jax, orbax nor tensorstore nor anything of harp_tpu, and its entry points
-refuse to guess a device when no CUDA card is present."""
+utils/fh_utils.py, graft_entry.py and utils/debug_nans.py among them)
+loads neither jax, orbax nor tensorstore nor anything of harp_tpu, and
+its entry points refuse to guess a device when no CUDA card is present."""
 
 import os
 import subprocess
@@ -28,7 +28,7 @@ new = {"harp_tpu_torch.parallel.sharding", "harp_tpu_torch.parallel.halo",
        "harp_tpu_torch.utils.orbax_io", "harp_tpu_torch.preprocess.crop",
        "harp_tpu_torch.losses.smooth", "harp_tpu_torch.models.unet",
        "harp_tpu_torch.utils.opt_utils", "harp_tpu_torch.utils.fh_utils",
-       "harp_tpu_torch.graft_entry"}
+       "harp_tpu_torch.graft_entry", "harp_tpu_torch.utils.debug_nans"}
 print(len(names) if new <= set(names) else -1, bad)
 """
 

@@ -3,7 +3,10 @@ render_360, render_360_light, concat_image_dirs, save_gif) against
 harp_tpu's, on CPU, at 32^2 with the light-density hand, 3 views per axis
 and 2 lights.
 
-- Files: harp_tpu's listings with .jpg -> .png (the port writes PNG).
+- Files: harp_tpu's listings exactly (JPEG frames and out.gif); a frame
+  whose uint8 array is the same in both packages is the same bytes; the
+  combination's frames are the JPEGs of the two views as decoded side by
+  side.
 - Chunked renders (several views a render) are the same bits as one view
   at a time.
 - Renders: each view's vertices are the previous view's rotated (harp_tpu's
@@ -14,9 +17,10 @@ and 2 lights.
   uint8 codes differ from its view's); every other pixel within 1e-4.
   Views 0, 2, h_0 and h_2 (the first and last of each axis); measured: no
   pixel beyond 1e-4 (largest 5.2e-5), every code equal.
-- The GIF: PIL reads it with the frame count, 100 ms and loop 0; each
-  frame's mean abs error to its PNG is at most PIL's own GIF error on the
-  same frames plus 0.5 codes.
+- The GIF, built from the written JPEGs as harp_tpu's save_gif builds its
+  own: PIL reads it with the frame count, 100 ms and loop 0; each frame's
+  mean abs error to its decoded JPEG is at most that of harp_tpu's GIF of
+  the same files (Pillow's quantiser) plus 0.5 codes.
 """
 
 import os
@@ -34,6 +38,7 @@ from harp_tpu.data.synthetic import make_synthetic_sequence as jmake_sequence
 from harp_tpu.render import pipeline as jpipeline
 from harp_tpu.render.rasterizer import RasterConfig as JRasterConfig
 from harp_tpu.utils import viz as jviz
+from harp_tpu_torch import native
 from harp_tpu_torch.config import HarpConfig
 from harp_tpu_torch.convert import assets_from_numpy, params_from_numpy
 from harp_tpu_torch.render import pipeline
@@ -177,33 +182,54 @@ def test_render_360_writes_harp_tpus_files_and_gifs(scene, tmp_path):
     s = scene
     jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
     counters = {}
-    outs = []
+    outs, same = [], 0
     for normal in (False, True):
         want = jviz.render_360(s["jgt"], 0, s["jassets"], s["jconfig"], s["jrcfg"], jdir,
                                render_normal=normal, views_per_axis=VIEWS)
         got = viz.render_360(s["params"], 0, s["assets"], s["config"], s["rcfg"], pdir,
                              render_normal=normal, views_per_axis=VIEWS, counters=counters)
         assert os.path.basename(got) == os.path.basename(want)
-        assert sorted(os.listdir(got)) == sorted(n.replace(".jpg", ".png")
-                                                 for n in os.listdir(want))
+        assert sorted(os.listdir(got)) == sorted(os.listdir(want))
+        # Where the two packages' uint8 views are equal, so are the files.
+        ours = viz.turntable_views(s["params"], 0, s["assets"], s["config"], s["rcfg"],
+                                   normal, VIEWS).numpy()
+        theirs = np.asarray(jviz._turntable_fn(s["jassets"], s["jconfig"], s["jrcfg"], 0,
+                                               normal, VIEWS)(s["jgt"]))
+        for i in range(2 * VIEWS):
+            name = ("" if i < VIEWS else "h_") + "%04d.jpg" % (i % VIEWS)
+            with open(os.path.join(got, name), "rb") as f, open(os.path.join(want, name),
+                                                                 "rb") as g:
+                if np.array_equal(ours[i], theirs[i]):
+                    assert f.read() == g.read(), name
+                    same += 1
         outs.append(got)
+    assert same >= 2 * VIEWS  # the measured case: every view's codes equal
     assert counters and not any(counters.values())
     jviz.concat_image_dirs(*[os.path.join(jdir, os.path.basename(o)) for o in outs],
                            os.path.join(jdir, "render_360_combine"))
-    viz.concat_image_dirs(*outs, os.path.join(pdir, "render_360_combine"), device="cpu")
+    viz.concat_image_dirs(*outs, os.path.join(pdir, "render_360_combine"))
     want_l = jviz.render_360_light(s["jgt"], 0, s["jassets"], s["jconfig"], s["jrcfg"], jdir,
                                    num=LIGHTS)
     got_l = viz.render_360_light(s["params"], 0, s["assets"], s["config"], s["rcfg"], pdir,
                                  num=LIGHTS)
     for sub in ("render_360_combine", "render_360_light"):
         assert sorted(os.listdir(os.path.join(pdir, sub))) == sorted(
-            n.replace(".jpg", ".png") for n in os.listdir(os.path.join(jdir, sub)))
+            os.listdir(os.path.join(jdir, sub)))
     assert got_l.endswith("render_360_light") and want_l.endswith("render_360_light")
-    # The combination is the two views side by side, exactly.
-    for i, name in enumerate(["0000.png", "0001.png", "0002.png", "h_0000.png"]):
-        comb = viz._read_rgb(os.path.join(pdir, "render_360_combine", "%04d.png" % i))
-        parts = [viz._read_rgb(os.path.join(o, name)) for o in outs]
-        np.testing.assert_array_equal(comb, np.concatenate(parts, 1))
+    # The combination: the two views' JPEGs decoded side by side, encoded
+    # again; harp_tpu's bytes wherever its two inputs are the port's bytes.
+    for i, name in enumerate(["0000.jpg", "0001.jpg", "0002.jpg", "h_0000.jpg"]):
+        comb = os.path.join("render_360_combine", "%04d.jpg" % i)
+        with open(os.path.join(pdir, comb), "rb") as f:
+            data = f.read()
+        parts = [viz.read_rgb(os.path.join(o, name)) for o in outs]
+        assert data == native.jpeg_bytes(np.concatenate(parts, 1), 75)
+        inputs = [os.path.join(d, os.path.basename(o), name) for o in outs
+                  for d in (pdir, jdir)]
+        if all(open(a, "rb").read() == open(b, "rb").read()
+               for a, b in zip(inputs[::2], inputs[1::2])):
+            with open(os.path.join(jdir, comb), "rb") as f:
+                assert data == f.read(), comb
 
 
 def _gif_errors(path, frames):
@@ -219,9 +245,9 @@ def _gif_errors(path, frames):
 
 @pytest.mark.parametrize("kind", ["render", "many_colours"])
 def test_gif_is_within_pils_own_error(scene, tmp_path, kind):
-    """Rendered views (at most 256 colours a frame at 32^2: held exactly), and
-    large frames of many colours (median cut; codes of 9 to 12 bits and
-    clear codes in the LZW stream)."""
+    """Rendered views (a decoded JPEG of at most 256 colours is held
+    exactly), and large frames of many colours (median cut; codes of 9 to
+    12 bits and clear codes in the LZW stream)."""
     d = tmp_path / "frames"
     if kind == "render":
         frames = viz.turntable_views(scene["params"], 0, scene["assets"], scene["config"],
@@ -234,14 +260,17 @@ def test_gif_is_within_pils_own_error(scene, tmp_path, kind):
         frames = np.clip(frames, 0, 255).astype(np.uint8)
         frames[:, 100:, 100:] = 255  # a flat region: long LZW strings
     for i, f in enumerate(frames):
-        viz.save_image(f, str(d / f"{i:04d}.png"))
+        viz.save_image(f, str(d / f"{i:04d}.jpg"))
+    decoded = np.stack([np.asarray(Image.open(d / f"{i:04d}.jpg")) for i in range(len(frames))])
+    np.testing.assert_array_equal(decoded, np.stack([viz.read_rgb(str(d / f"{i:04d}.jpg"))
+                                                     for i in range(len(frames))]))
     viz.save_gif(str(d), str(tmp_path / "port.gif"))
-    pil = [Image.fromarray(f) for f in frames]
-    pil[0].save(tmp_path / "pil.gif", save_all=True, append_images=pil[1:], duration=100,
-                loop=0)
-    ours = _gif_errors(tmp_path / "port.gif", frames.astype(float))
-    theirs = _gif_errors(tmp_path / "pil.gif", frames.astype(float))
+    jviz.save_gif(str(d), str(tmp_path / "pil.gif"))
+    ours = _gif_errors(tmp_path / "port.gif", decoded.astype(float))
+    theirs = _gif_errors(tmp_path / "pil.gif", decoded.astype(float))
     assert np.all(ours <= theirs + 0.5), (ours, theirs)
-    few = [len(np.unique(f.reshape(-1, 3), axis=0)) <= 256 for f in frames]
-    assert all(few) == (kind == "render")  # a frame's own colours are its palette
+    few = [len(np.unique(f.reshape(-1, 3), axis=0)) <= 256 for f in decoded]
+    # JPEG-decoded views: some keep at most 256 colours (held exactly), none
+    # of the many-colour frames does (median cut).
+    assert any(few) == (kind == "render")
     assert ours[few].max(initial=0.0) == 0.0
