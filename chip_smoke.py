@@ -50,6 +50,8 @@ fit_sequence on a one-rank NCCL mesh, the same bits as without a mesh, and
 on two gloo ranks sharing the card, against the card's unsharded fit
 (mesh_fit); a fit killed after its orbax checkpoint and resumed, the same
 bits as the unbroken fit, with the checkpointer's retention (orbax_resume).
+Then the layer stamp kernel on a card table of the epoch scan's shape,
+held to the CPU's stamps, eagerly and replayed from a CUDA graph (stamps).
 Then the epoch scan: fit_sequence(epoch_scan=2) as CUDA graphs of the step,
 twice, eagerly under --debug-nans' checks, on a one-rank NCCL mesh (all
 the same bits) and as the per-step loop (harp_tpu's scan-against-loop
@@ -2271,6 +2273,89 @@ def _plain_adams():
         driver.build_optimizers = original
 
 
+STAMP_ROWS = (10, 2)  # the benchmark's segments: epoch_scan 10 epochs of 2 steps
+
+
+def phase_stamps(dev) -> None:
+    """The layer stamp kernel (csrc/stamp.cu through utils/profiling.
+    StepStamps) on a card table of the epoch scan's shape (epochs x steps,
+    len(STAMP_SLOTS)), held to StepStamps on a CPU table, with a guard row
+    on each side of the card's. (a) With the device cursor at rows 0, 7 and
+    the last, each slot alone: the card writes the one cell [cursor, slot],
+    as the CPU does, and nothing else, guard rows included. (b) A row's nine
+    slots in their order, with a product between two: non-decreasing, and
+    increasing across the product. (c) Captured into a CUDA graph with the
+    scan's cursor advance and replayed once a row: every row's slots
+    written and non-decreasing, each row's start at or after the previous
+    row's end, the guard rows untouched."""
+    import torch
+    from harp_tpu_torch.utils.profiling import STAMP_SLOTS, StepStamps
+
+    rows, ncols = STAMP_ROWS[0] * STAMP_ROWS[1], len(STAMP_SLOTS)
+    buf = torch.zeros(rows + 2, ncols, dtype=torch.int64, device=dev)
+    table = buf[1:rows + 1]
+    cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+    cpu = torch.zeros(rows, ncols, dtype=torch.int64)
+    cpu_cursor = torch.zeros(1, dtype=torch.int64)
+    card, host = StepStamps(table, cursor), StepStamps(cpu, cpu_cursor)
+    cells = 0
+    for r in (0, 7, rows - 1):
+        for slot in STAMP_SLOTS:
+            buf.zero_()
+            cpu.zero_()
+            cursor.fill_(r)
+            cpu_cursor.fill_(r)
+            card(slot)
+            host(slot)
+            written = (buf != 0).cpu()
+            if not (torch.equal(written[1:rows + 1], cpu != 0)
+                    and int(written.sum()) == 1 and not written[[0, -1]].any()):
+                fail(f"stamps: row {r} slot {slot}: the card wrote "
+                     f"{written.nonzero().tolist()} (table rows from 1), the CPU "
+                     f"{(cpu != 0).nonzero().tolist()}")
+            cells += 1
+    a = torch.randn(2048, 2048, device=dev)
+    buf.zero_()
+    cursor.fill_(3)
+    for i, slot in enumerate(STAMP_SLOTS):
+        card(slot)
+        if i == 4:
+            a = a @ a / 64
+    t = table[3].cpu()
+    if not ((t > 0).all() and (t[1:] >= t[:-1]).all() and t[5] > t[4]):
+        fail(f"stamps: a row in slot order is not non-decreasing: {t.tolist()}")
+    buf.zero_()
+    cursor.zero_()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # the product's workspace, before the capture
+        b = a @ a
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i, slot in enumerate(STAMP_SLOTS):
+            card(slot)
+            if i == 4:
+                b = a @ a
+        cursor.add_(1)
+    buf.zero_()  # the capture ran nothing
+    cursor.zero_()
+    for _ in range(rows):
+        graph.replay()
+    torch.cuda.synchronize(dev)
+    t = buf.cpu()
+    tab = t[1:rows + 1]
+    ok = ((tab > 0).all() and (tab[:, 1:] >= tab[:, :-1]).all()
+          and (tab[1:, 0] >= tab[:-1, -1]).all() and not t[[0, -1]].any()
+          and int(cursor.item()) == rows)
+    if not ok:
+        fail(f"stamps: the replayed graph's table {t.tolist()}, cursor {int(cursor.item())}")
+    step_us = (tab[:, -1] - tab[:, 0]).double() / 1e3
+    emit({"phase": "stamps", "table": [rows, ncols], "cells_checked": cells,
+          "graph_rows": rows, "replayed_row_us": {"min": float(step_us.min()),
+                                                  "max": float(step_us.max())}})
+
+
 def phase_epoch_scan(dev, seq) -> None:
     """harp_tpu's epoch scan as CUDA graphs of the step (fit_sequence(
     epoch_scan=2)) on the flagship (18 frames of 448^2, one step an epoch,
@@ -2367,9 +2452,10 @@ def phase_epoch_scan(dev, seq) -> None:
                                         seq["assets"], config)[0][0]
         plateau = DevicePlateau.of(PlateauState(), dev)
 
-        def segment(n, k0):
-            return (np.stack([rng.permutation(B_STEP)[None] for _ in range(n)]),
-                    keys[k0:k0 + n, None])
+        def segment(scan, n, k0):
+            scan.upload(np.stack([rng.permutation(B_STEP)[None] for _ in range(n)]),
+                        keys[k0:k0 + n, None])
+            return scan.run(config.plateau_patience, config.plateau_factor)
 
         ms = {}
         for mode, use_graph in (("eager", False), ("graph", True)):
@@ -2377,21 +2463,17 @@ def phase_epoch_scan(dev, seq) -> None:
                                    app_on=flags[1], epochs=SCAN_TIMED, steps=1, batch=B_STEP,
                                    graph=use_graph)
             k0 = 0 if mode == "eager" else SCAN_TIMED + 1
-            scan.run(*segment(1 if mode == "eager" else 2, k0), config.plateau_patience,
-                     config.plateau_factor)  # warm-up (and capture)
+            segment(scan, 1 if mode == "eager" else 2, k0)  # warm-up (and capture)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = scan.run(*segment(SCAN_TIMED, k0), config.plateau_patience,
-                           config.plateau_factor)
+            out = segment(scan, SCAN_TIMED, k0)
             torch.cuda.synchronize()
             ms[mode] = (time.perf_counter() - t0) * 1e3 / SCAN_TIMED
             if not torch.isfinite(out).all():
                 fail(f"epoch_scan: {label} {mode} steps gave non-finite sums")
             if use_graph:
-                prof = profile_window(
-                    lambda: scan.run(*segment(SCAN_PROFILED, 2 * SCAN_TIMED + 2),
-                                     config.plateau_patience, config.plateau_factor),
-                    kernel_names=KERNEL_NAMES)
+                prof = profile_window(lambda: segment(scan, SCAN_PROFILED, 2 * SCAN_TIMED + 2),
+                                      kernel_names=KERNEL_NAMES)
                 trace = prof["kernel_counts"]
                 nodes, n_nodes = graph_kernel_counts(scan.graph, KERNEL_NAMES)
                 counts = {k: v * SCAN_PROFILED for k, v in nodes.items()}
@@ -2687,7 +2769,9 @@ def main() -> int:
     phase_batch_fit(dev, seq)
     phase_mesh_fit(dev, seq, fit)
     phase_orbax_resume(dev, seq, fit)
-    # The epoch scan: segments of epochs as CUDA graphs of the step.
+    # The epoch scan: segments of epochs as CUDA graphs of the step, and
+    # the layer stamps that a profiled scan captures into them.
+    phase_stamps(dev)
     phase_epoch_scan(dev, seq)
     phase_nccl_scan(dev, seq)
     del seq, fit

@@ -245,8 +245,8 @@ def measure_replayed(B: int = 18, device=None, steps: int = 10, *, img: int = IM
     rng = np.random.RandomState(0)
 
     def segment(n: int, k0: int) -> torch.Tensor:
-        return scan.run(np.stack([rng.permutation(B)[None] for _ in range(n)]),
-                        keys[k0:k0 + n, None], cfg.plateau_patience, cfg.plateau_factor)
+        scan.upload(np.stack([rng.permutation(B)[None] for _ in range(n)]), keys[k0:k0 + n, None])
+        return scan.run(cfg.plateau_patience, cfg.plateau_factor)
 
     torch.cuda.reset_peak_memory_stats(dev)
     try:

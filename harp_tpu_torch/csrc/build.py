@@ -32,6 +32,7 @@ SOURCES = {
     "raster": ("csrc/raster.cu", ["-fmad=false"]),
     "pcf_scatter": ("csrc/pcf_scatter.cu", []),
     "segment_sum": ("csrc/segment_sum.cu", []),
+    "stamp": ("csrc/stamp.cu", []),
     "nvjpeg": ("native/frameloader_nvjpeg.cu", ["-lnvjpeg"]),
 }
 

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -53,6 +52,9 @@ from harp_tpu_torch.render.rasterizer import (
 )
 from harp_tpu_torch.render.shadow import shadow_visibility_compact
 from harp_tpu_torch.utils import debug_nans
+from harp_tpu_torch.utils.profiling import (
+    FIT, STAMP_SLOTS, StepStamps, annotate, mark, span_s, stamp, stamp_library, stamps_on,
+)
 
 OVERFLOW_KEYS = ("bin_overflow", "active_overflow", "span_overflow",
                  "light_bin_overflow", "light_active_overflow",
@@ -194,7 +196,7 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
                    assets, config, rcfg: RasterConfig, ref_verts,
                    coarse_on: bool, app_on: bool, generator=None,
                    offsets=None, vgg: Vgg16Features | None = None, key=None,
-                   extras: dict | None = None):
+                   extras: dict | None = None, stamps: StepStamps | None = None):
     """All fitting losses for one minibatch -> (total, breakdown).
 
     extras: the model family's statics ({"texture_basis": TextureBasis}
@@ -206,10 +208,18 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
     uint32), as harp_tpu draws them; else from `generator`. vgg: the
     perceptual network, or None for no VGG term; aux["vgg_gt"] holds the
     cached GT pyramids when the fit made them. The breakdown holds every
-    loss term and the raster overflow counters."""
+    loss term and the raster overflow counters.
+
+    stamps: the step's layer stamps (utils/profiling.StepStamps), or None
+    for none: the forward's at the step's start, after the camera, around
+    the VGG term and at the end; markers on the vertices and the VGG input
+    stamp their gradients in the backward."""
     losses = {}
+    stamp(stamps, "start")
     verts, joints = pipeline.mesh_forward(params, fids, assets, config)
     R, T = pipeline.camera_for_frames(params, fids, config)
+    verts = mark(stamps, verts, "verts_grad")
+    stamp(stamps, "camera")
     screen, rout = pipeline.raster_camera_view_compact(
         verts, assets, R, T, config, rcfg, need_soft=coarse_on, need_hard=app_on)
     act_idx = rout["act_idx"]
@@ -232,6 +242,7 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
             losses["arap"] = arap_loss(verts, ref_verts, assets.sub_topology)
 
     light_counts = None
+    vgg_in = None
     if app_on:
         texture = appearance_texture(params, config, extras)
         if config.share_light_position:
@@ -264,14 +275,18 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
         if vgg is not None:
             rgb = scatter_tiles(rgb_c, act_idx, rcfg, bg)
             m = batch_masks_er[..., None]
-            if "vgg_gt" in aux:
-                losses["vgg"] = vgg_feature_l1_cached(
-                    vgg, rgb * m, aux["vgg_gt"], fids, chunk=config.vgg_chunk,
-                    remat=config.vgg_remat)
-            else:
-                losses["vgg"] = vgg_feature_l1(vgg, rgb * m, batch_imgs * m,
-                                               chunk=config.vgg_chunk,
-                                               remat=config.vgg_remat)
+            vgg_in = mark(stamps, rgb * m, "vgg_grad")
+    stamp(stamps, "vgg_in")
+    if vgg_in is not None:
+        if "vgg_gt" in aux:
+            losses["vgg"] = vgg_feature_l1_cached(
+                vgg, vgg_in, aux["vgg_gt"], fids, chunk=config.vgg_chunk,
+                remat=config.vgg_remat)
+        else:
+            losses["vgg"] = vgg_feature_l1(vgg, vgg_in, batch_imgs * m,
+                                           chunk=config.vgg_chunk, remat=config.vgg_remat)
+    stamp(stamps, "vgg_out")
+    if app_on:
         if config.model_type not in ("nimble", "html"):
             if offsets is None and key is not None:
                 offsets = texture_reg_offsets(key, texture.shape[0], texture.shape[1],
@@ -298,6 +313,7 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
     if light_counts is not None:
         for k, v in light_counts.items():
             breakdown["light_" + k] = v.sum().float()
+    stamp(stamps, "losses")
     return total, breakdown
 
 
@@ -320,7 +336,10 @@ class TrainStep:
     step reads nothing from the host, so a CUDA graph can hold it): the
     coarse group's lr is then written in place, lr_pose * lr_scale in
     float32 on the device. A float lr_scale (the per-step loop) is
-    multiplied on the host."""
+    multiplied on the host.
+
+    stamps (utils/profiling.StepStamps or None): the step's layer stamps,
+    compute_losses' and two more, after backward and after the Adams."""
 
     def __init__(self, assets, config, rcfg: RasterConfig, params: dict,
                  device=None, vgg: Vgg16Features | None = None,
@@ -337,7 +356,8 @@ class TrainStep:
 
     def __call__(self, aux, fids, batch_imgs, batch_masks, batch_masks_er,
                  ref_verts, lr_scale=1.0, *, coarse_on: bool,
-                 app_on: bool, generator=None, offsets=None, key=None):
+                 app_on: bool, generator=None, offsets=None, key=None,
+                 stamps: StepStamps | None = None):
         for p in self.params.values():
             p.grad = None
         with deterministic_convolutions():
@@ -346,8 +366,9 @@ class TrainStep:
                 decode_frames(batch_masks), decode_frames(batch_masks_er),
                 self.assets, self.config, self.rcfg, ref_verts, coarse_on, app_on,
                 generator=generator, offsets=offsets, vgg=self.vgg, key=key,
-                extras=self.extras)
+                extras=self.extras, stamps=stamps)
             total.backward()
+        stamp(stamps, "backward")
         if self.mesh is not None:
             average_gradients(self.mesh, [
                 p for name, on in (("coarse", coarse_on), ("app", app_on)) if on
@@ -363,6 +384,7 @@ class TrainStep:
                 if name == "coarse":
                     self._set_coarse_lr(group, lr_scale)
             opt.step()
+        stamp(stamps, "adam")
         return total.detach(), breakdown
 
 
@@ -420,14 +442,25 @@ class EpochScan:
 
     Capture: the stage's first WARMUP_STEPS steps run eagerly on a side
     stream (real steps of the fit, so it takes as many Adam updates as
-    harp_tpu's), then the step is captured once, under the caller's
-    deterministic_convolutions(), and replayed for the rest of the stage.
+    harp_tpu's; span "scan.eager"), then the step is captured once, under
+    the caller's deterministic_convolutions() (span "scan.capture",
+    torch's gc.collect() and empty_cache() included), and replayed for the
+    rest of the stage.
     graph False (the CPU, a gloo mesh, anomaly mode, --debug-nans) runs
     the same step eagerly every time. The captured cudaGraph_t is kept
     beside its executable (self.graph.raw_cuda_graph()), so that its
     kernel nodes can be read (utils/profiling.graph_kernel_counts).
     close() releases the graph and its memory pool: a stage's graph is
     never replayed after its stage.
+
+    Layer stamps (utils/profiling.StepStamps): once a segment is loaded
+    while a torch.profiler records, the runner holds a stamp table, a row a
+    step of the segment, zeroed at each load; a step stamps its row
+    (self.cursor's) when it is captured or runs eagerly while a profiler
+    records, and a graph captured so stamps every replay. With no profiler
+    recording the step, its graph and the segment's read are those of a
+    fit without stamps. The CUDA stamp kernel is loaded with the first
+    stamp table, so an unprofiled fit neither loads nor builds it.
 
     With a mesh, the gradient all-reduce of the step is inside the graph
     (NCCL); each coarse epoch's total is all-reduced for the plateau, and
@@ -449,15 +482,20 @@ class EpochScan:
         self.graph = None
         self.eager_steps = 0
         self.capture_s = None
+        self.stamps = None  # (epochs * steps, len(STAMP_SLOTS)) int64, see the class
+        self.loaded = 0  # epochs of the loaded segment
+        self.eager_rows = 0  # its steps run eagerly, the first ones
 
     def _body(self) -> None:
         i = self.cursor
         fids = self.fids_es.index_select(0, i)[0]
         key = self.keys_es.index_select(0, i)[0]
         d = self.data
+        stamps = StepStamps(self.stamps, i) if self.stamps is not None and stamps_on() else None
         total, br = self.step(self.aux, fids, d.images[fids], d.masks[fids],
                               d.masks_eroded[fids], self.ref_verts, self.plateau.scale,
-                              coarse_on=self.flags[0], app_on=self.flags[1], key=key)
+                              coarse_on=self.flags[0], app_on=self.flags[1], key=key,
+                              stamps=stamps)
         if self.vals is None:
             self.terms = list(br)
             self.vals = torch.zeros(self.fids_es.shape[0], 1 + len(self.terms),
@@ -469,36 +507,59 @@ class EpochScan:
     def _one_step(self) -> None:
         if self.graph is not None:
             self.graph.replay()
-        elif not self.use_graph:
+            return
+        if not self.use_graph:
             self._body()
         elif self.eager_steps < WARMUP_STEPS:
-            side = torch.cuda.Stream(self.step.device)
-            side.wait_stream(torch.cuda.current_stream(self.step.device))
-            with torch.cuda.stream(side):
-                self._body()
-            torch.cuda.current_stream(self.step.device).wait_stream(side)
+            with annotate("scan.eager"):
+                side = torch.cuda.Stream(self.step.device)
+                side.wait_stream(torch.cuda.current_stream(self.step.device))
+                with torch.cuda.stream(side):
+                    self._body()
+                torch.cuda.current_stream(self.step.device).wait_stream(side)
             self.eager_steps += 1
         else:
-            t0 = time.perf_counter()
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph):
-                self._body()
+            with annotate("scan.capture") as span:
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(graph):
+                    self._body()
             self.graph = graph
-            self.capture_s = time.perf_counter() - t0
+            self.capture_s = span_s(span)
             graph.replay()  # the captured step has not run yet
+            return
+        self.eager_rows += 1
 
-    def run(self, fids_es: np.ndarray, keys_es: np.ndarray, patience: int,
-            factor: float) -> torch.Tensor:
-        """Run a segment: fids_es (L, steps, batch) frame ids, keys_es (L,
-        steps, 2) the steps' subkeys. Returns the device tensor (L, 2 +
-        terms): each epoch's summed total and terms, then its lr scale
-        after the epoch's plateau update."""
+    def upload(self, fids_es: np.ndarray, keys_es: np.ndarray) -> None:
+        """Load a segment: fids_es (L, steps, batch) frame ids, keys_es (L,
+        steps, 2) the steps' subkeys, copied into the runner's buffers; the
+        cursor and the stamp table (made here while a profiler records)
+        reset."""
         L = fids_es.shape[0]
         n = L * self.steps
         self.fids_es[:n].copy_(torch.from_numpy(
             np.ascontiguousarray(fids_es, np.int64).reshape(n, -1)))
         self.keys_es[:n].copy_(torch.from_numpy(np.asarray(keys_es, np.int64).reshape(n, 2)))
         self.cursor.zero_()
+        self.loaded, self.eager_rows = L, 0
+        if self.stamps is not None:
+            self.stamps.zero_()
+        elif stamps_on():
+            if self.cursor.is_cuda:
+                stamp_library()  # built on a checkout's first profiled fit
+            self.stamps = torch.zeros(self.fids_es.shape[0], len(STAMP_SLOTS),
+                                      dtype=torch.int64, device=self.cursor.device)
+
+    def stamp_rows(self) -> torch.Tensor | None:
+        """The loaded segment's rows of the stamp table (L * steps,
+        len(STAMP_SLOTS)) on the device, 0 where no step stamped; None
+        without a table."""
+        return None if self.stamps is None else self.stamps[:self.loaded * self.steps]
+
+    def run(self, patience: int, factor: float) -> torch.Tensor:
+        """Run the loaded segment's steps. Returns the device tensor (L, 2 +
+        terms): each epoch's summed total and terms, then its lr scale
+        after the epoch's plateau update."""
+        L = self.loaded
         rows = []
         for e in range(L):
             for _ in range(self.steps):
@@ -517,13 +578,14 @@ class EpochScan:
 
     def close(self) -> None:
         """Release the graph and the memory its step holds (the gradients
-        live in its pool)."""
-        for p in self.step.params.values():
-            p.grad = None
-        self.graph = self.vals = None
-        if self.use_graph:
-            torch.cuda.synchronize(self.step.device)
-            torch.cuda.empty_cache()
+        live in its pool). Span "scan.close"."""
+        with annotate("scan.close"):
+            for p in self.step.params.values():
+                p.grad = None
+            self.graph = self.vals = None
+            if self.use_graph:
+                torch.cuda.synchronize(self.step.device)
+                torch.cuda.empty_cache()
 
 
 def make_epoch_scan(step: TrainStep, data: FitData, aux: dict, ref_verts, plateau, *,
@@ -677,224 +739,256 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
     when config.vgg_cache_gt and the sequence has at most
     vgg_cache_max_frames frames. extras: the model family's statics (HTML's
     texture basis), as compute_losses takes them. Runs on CUDA unless
-    device is given (with a mesh: on the mesh's device)."""
+    device is given (with a mesh: on the mesh's device).
+
+    Spans (utils/profiling.annotate): "fit", the call; inside it
+    "fit.setup" (the step and its optimizers, the ARAP reference, the key
+    stream), "fit.vgg_gt" (the GT pyramids), a segment's
+    "segment.upload" (its permutations and their copies to the device),
+    "segment.replays" (its steps; the epoch scan's "scan.eager" and
+    "scan.capture" inside), "segment.read" (the one host read; with the
+    segment's layer stamps attached when the runner has a stamp table) and
+    "segment.actions", the runner's "scan.close" and "fit.drain" (the
+    writer and checkpointer shut down). metrics.jsonl's timing fields are
+    these spans' seconds: setup_total_s fit.setup's, vgg_gt_materialize_s
+    fit.vgg_gt's, segment_s from segment.upload's start to segment.read's
+    end, actions_s segment.actions', capture_s scan.capture's and fit_s
+    fit's until the last epoch's line."""
     from harp_tpu_torch.utils.io import save_checkpoint, save_result
     from harp_tpu_torch.utils.profiling import MetricsLogger
 
-    _refuse(prefetch_compile=prefetch_compile, prefetch_extra=prefetch_extra)
-    n = data.num_frames
-    bs = min(config.batch_size, n)
-    steps = max(n // bs, 1)
-    rows = slice(None)
-    if mesh is not None:
-        if not isinstance(mesh, Mesh):
-            raise TypeError(f"mesh must be a harp_tpu_torch.parallel.Mesh, not {type(mesh)}")
-        rows = frame_rows(mesh, bs)  # raises unless the batch divides over the ranks
-        device = mesh.device if device is None else device
-        if mesh.rank != 0:  # rank 0 writes the logs and checkpoints
-            out_dir = None
-    t0 = time.perf_counter()
-    dev = resolve_device(device)
-    rcfg = rcfg or config.raster_config()
-    if vgg is None and config.w_vgg > 0:
-        vgg = Vgg16Features.create(weights_path=config.vgg_weights or None,
-                                   compute_dtype=config.vgg_compute_dtype, device=dev)
-    if mesh is not None:
-        broadcast_from_rank0(mesh, params.values())
-    step = make_train_step(assets, config, rcfg, params, device=dev, vgg=vgg, extras=extras,
-                           mesh=mesh)
-    aux = dict(aux)  # the GT VGG cache goes in below; a captured step keeps aux's tensors
-    logger = MetricsLogger(out_dir) if out_dir is not None else None
-    ckpt = None
-    if out_dir is not None and checkpoint_every and config.checkpoint_backend == "orbax":
-        from harp_tpu_torch.utils.orbax_io import OrbaxCheckpointer
+    with annotate(FIT) as fit_span:
+        _refuse(prefetch_compile=prefetch_compile, prefetch_extra=prefetch_extra)
+        n = data.num_frames
+        bs = min(config.batch_size, n)
+        steps = max(n // bs, 1)
+        rows = slice(None)
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a harp_tpu_torch.parallel.Mesh, not {type(mesh)}")
+            rows = frame_rows(mesh, bs)  # raises unless the batch divides over the ranks
+            device = mesh.device if device is None else device
+            if mesh.rank != 0:  # rank 0 writes the logs and checkpoints
+                out_dir = None
+        with annotate("fit.setup") as setup_span:
+            dev = resolve_device(device)
+            rcfg = rcfg or config.raster_config()
+            if vgg is None and config.w_vgg > 0:
+                vgg = Vgg16Features.create(weights_path=config.vgg_weights or None,
+                                           compute_dtype=config.vgg_compute_dtype, device=dev)
+            if mesh is not None:
+                broadcast_from_rank0(mesh, params.values())
+            step = make_train_step(assets, config, rcfg, params, device=dev, vgg=vgg, extras=extras,
+                                   mesh=mesh)
+            aux = dict(aux)  # the GT VGG cache goes in below; a captured step keeps aux's tensors
+            logger = MetricsLogger(out_dir) if out_dir is not None else None
+            ckpt = None
+            if out_dir is not None and checkpoint_every and config.checkpoint_backend == "orbax":
+                from harp_tpu_torch.utils.orbax_io import OrbaxCheckpointer
 
-        ckpt = OrbaxCheckpointer(out_dir)
-    # The logs' JPEG encoding and writing run on one background thread (the
-    # codec, called through ctypes, releases the interpreter lock), as
-    # harp_tpu's writer queue does: the epoch loop pays the renders and
-    # their copies to the host only.
-    writer = (ThreadPoolExecutor(max_workers=1) if out_dir is not None
-              and (image_log_every or val_data is not None) else None)
-    writes = []
+                ckpt = OrbaxCheckpointer(out_dir)
+            # The logs' JPEG encoding and writing run on one background thread (the
+            # codec, called through ctypes, releases the interpreter lock), as
+            # harp_tpu's writer queue does: the epoch loop pays the renders and
+            # their copies to the host only.
+            writer = (ThreadPoolExecutor(max_workers=1) if out_dir is not None
+                      and (image_log_every or val_data is not None) else None)
+            writes = []
 
-    def submit(fn, *args):
-        writes.append(writer.submit(fn, *args))
+            def submit(fn, *args):
+                writes.append(writer.submit(fn, *args))
 
-    if resume is not None and "ref_verts" in (resume.get("extra") or {}):
-        # The ARAP reference is frame 0 at the fit's ORIGINAL initial
-        # parameters; recomputing it from the checkpoint would change the loss.
-        ref_verts = torch.as_tensor(resume["extra"]["ref_verts"], device=dev)
-    else:
-        with torch.no_grad():
-            ref_verts = pipeline.mesh_forward(
-                params, torch.zeros(1, dtype=torch.long, device=dev), assets, config)[0][0]
-
-    rng = np.random.RandomState(seed)
-    subs_all = _key_stream_np(seed, config.total_epoch * steps)
-    plateau = PlateauState()
-    history = []
-    start_epoch = 0
-    if resume is not None:
-        for g, opt in step.optimizers.items():
-            load_optimizer_state(opt, resume["opt_states"][g])
-        pl = (resume.get("extra") or {}).get("plateau")
-        plateau = (PlateauState(**{k: type(getattr(plateau, k))(v) for k, v in pl.items()})
-                   if pl else PlateauState(scale=float(resume.get("plateau_scale", 1.0))))
-        start_epoch = int(resume["epoch"]) + 1
-        for _ in range(start_epoch):  # the same minibatches as an unbroken fit
-            rng.permutation(n)
-
-    cache_gt = (vgg is not None and config.vgg_cache_gt
-                and n <= config.vgg_cache_max_frames)
-    use_scan = epoch_scan > 1 and callback is None
-    # A graph on the card; eager segments where the step reads the host:
-    # gloo's collectives, anomaly mode's and --debug-nans' checks.
-    graphs = (use_scan and dev.type == "cuda" and not torch.is_anomaly_enabled()
-              and not debug_nans.active() and (mesh is None or mesh.backend == "nccl"))
-    if logger is not None:
-        logger.log(-1, setup_total_s=time.perf_counter() - t0)
-
-    def ensure_vgg_gt(epoch: int) -> None:
-        """The GT VGG pyramids, cached before the first appearance step
-        (and so before an appearance stage's capture)."""
-        if not cache_gt or "vgg_gt" in aux:
-            return
-        t_gt = time.perf_counter()
-        masked = decode_frames(data.images) * decode_frames(data.masks_eroded)[..., None]
-        aux["vgg_gt"] = precompute_slices(vgg, masked, chunk=config.vgg_chunk)
-        del masked
-        if logger is not None:
-            logger.log(epoch, vgg_gt_materialize_s=time.perf_counter() - t_gt)
-
-    def run_actions(label: int, due) -> None:
-        """The logs and checkpoints that fell due in the epochs `due`, once,
-        from the state at epoch `label` (harp_tpu's _run_actions)."""
-        if out_dir is None:
-            return
-        if image_log_every and any(e % image_log_every == 0 for e in due):
-            _log_images(params, data, assets, config, rcfg, out_dir, label, submit)
-        if (val_data is not None and val_log_every
-                and any(e % val_log_every == 0 for e in due)):
-            _log_val_images(params, val_params, val_data, assets, config, rcfg,
-                            out_dir, label, extras, submit)
-        if checkpoint_every and any(e > 0 and e % checkpoint_every == 0 for e in due):
-            opt_states = {g: opt.state_dict() for g, opt in step.optimizers.items()}
-            extra = {"plateau": dataclasses.asdict(plateau), "ref_verts": ref_verts.cpu()}
-            if ckpt is not None:  # snapshot now, written on its own thread
-                ckpt.save(label, params, opt_states, plateau.scale, extra=extra)
+            if resume is not None and "ref_verts" in (resume.get("extra") or {}):
+                # The ARAP reference is frame 0 at the fit's ORIGINAL initial
+                # parameters; recomputing it from the checkpoint would change the loss.
+                ref_verts = torch.as_tensor(resume["extra"]["ref_verts"], device=dev)
             else:
-                save_result(params, out_dir, test=config.known_appearance)
-                save_checkpoint(os.path.join(out_dir, "checkpoint.pt"), params,
-                                opt_states, label, plateau.scale, extra=extra)
+                with torch.no_grad():
+                    ref_verts = pipeline.mesh_forward(
+                        params, torch.zeros(1, dtype=torch.long, device=dev), assets, config)[0][0]
 
-    def segment_len(e: int) -> int:
-        """Epochs of the segment from epoch e: at most epoch_scan, within
-        e's stage and the fit (harp_tpu's _segment_len)."""
-        flags = stage_flags(e, config)
-        L = 1
-        while (L < epoch_scan and e + L < config.total_epoch
-               and stage_flags(e + L, config) == flags):
-            L += 1
-        return L
+            rng = np.random.RandomState(seed)
+            subs_all = _key_stream_np(seed, config.total_epoch * steps)
+            plateau = PlateauState()
+            history = []
+            start_epoch = 0
+            if resume is not None:
+                for g, opt in step.optimizers.items():
+                    load_optimizer_state(opt, resume["opt_states"][g])
+                pl = (resume.get("extra") or {}).get("plateau")
+                plateau = (PlateauState(**{k: type(getattr(plateau, k))(v) for k, v in pl.items()})
+                           if pl else PlateauState(scale=float(resume.get("plateau_scale", 1.0))))
+                start_epoch = int(resume["epoch"]) + 1
+                for _ in range(start_epoch):  # the same minibatches as an unbroken fit
+                    rng.permutation(n)
 
-    def epoch_means(sums: torch.Tensor, keys: list) -> torch.Tensor:
-        """Epoch sums (..., 1 + terms) of this rank -> the mesh's: loss
-        terms the mean over the ranks, overflow counters the sum."""
-        if mesh is None:
-            return sums
-        all_reduce_sum(mesh, sums)
-        counter = torch.tensor([k in OVERFLOW_KEYS for k in ["loss"] + keys],
-                               device=sums.device)
-        return torch.where(counter, sums, sums / mesh.axis_size())
+            cache_gt = (vgg is not None and config.vgg_cache_gt
+                        and n <= config.vgg_cache_max_frames)
+            use_scan = epoch_scan > 1 and callback is None
+            # A graph on the card; eager segments where the step reads the host:
+            # gloo's collectives, anomaly mode's and --debug-nans' checks.
+            graphs = (use_scan and dev.type == "cuda" and not torch.is_anomaly_enabled()
+                      and not debug_nans.active() and (mesh is None or mesh.backend == "nccl"))
+        if logger is not None:
+            logger.log(-1, setup_total_s=span_s(setup_span))
 
-    scan = None
-    dplateau = DevicePlateau.of(plateau, dev) if use_scan else None
-    try:
-        with deterministic_convolutions():
-            epoch = start_epoch
-            while epoch < config.total_epoch:
-                coarse_on, app_on = stage_flags(epoch, config)
-                if app_on:
-                    ensure_vgg_gt(epoch)
-                if use_scan:
-                    L = segment_len(epoch)
-                    if scan is None or scan.flags != (coarse_on, app_on):
-                        if scan is not None:
-                            scan.close()
-                        scan = make_epoch_scan(
-                            step, data, aux, ref_verts, dplateau, coarse_on=coarse_on,
-                            app_on=app_on, epochs=epoch_scan, steps=steps,
-                            batch=len(range(bs)[rows]), graph=graphs, mesh=mesh)
-                    t_seg = time.perf_counter()
-                    fids_es = np.stack([rng.permutation(n)[:steps * bs].reshape(steps, bs)
-                                        for _ in range(L)])[..., rows]
-                    keys_es = subs_all[epoch * steps:(epoch + L) * steps].reshape(L, steps, 2)
-                    captured = scan.capture_s
-                    out = scan.run(fids_es, keys_es, config.plateau_patience,
-                                   config.plateau_factor)
-                    sums = epoch_means(out[:, :-1].contiguous(), scan.terms)
-                    host = torch.cat([sums.reshape(-1), out[:, -1], dplateau.stacked()]).cpu()
-                    host = host.numpy()  # the segment's one read
-                    k = sums.shape[1]
-                    sums_h, scales_h = host[:L * k].reshape(L, k), host[L * k:L * k + L]
-                    best, bad, scale = host[L * k + L:]
-                    plateau = PlateauState(best=float(best), bad_epochs=int(bad),
-                                           scale=float(scale))
-                    seg_s = time.perf_counter() - t_seg
-                    t_act = time.perf_counter()
-                    run_actions(epoch + L - 1, range(epoch, epoch + L))
-                    timing = {"segment_s": seg_s, "actions_s": time.perf_counter() - t_act,
-                              "graph": graphs}
-                    if scan.capture_s is not None and captured is None:
-                        timing["capture_s"] = scan.capture_s
-                    for i in range(L):
-                        history.append({"epoch": epoch + i, "loss": float(sums_h[i, 0]) / steps,
-                                        **{t: float(v) / steps
-                                           for t, v in zip(scan.terms, sums_h[i, 1:])}})
-                        if logger is not None:
-                            logger.log(epoch + i, lr_scale=float(scales_h[i]), **history[-1],
-                                       **(timing if i == L - 1 else {}))
-                    epoch += L
-                    continue
-                perm = rng.permutation(n)
-                total_acc, term_sums = None, {}
-                for s in range(steps):
-                    fids = torch.as_tensor(perm[s * bs:(s + 1) * bs][rows], device=dev)
-                    total, breakdown = step(
-                        aux, fids, data.images[fids], data.masks[fids],
-                        data.masks_eroded[fids], ref_verts, plateau.scale,
-                        coarse_on=coarse_on, app_on=app_on, key=subs_all[epoch * steps + s])
-                    # Summed on the device: one host sync an epoch.
-                    total_acc = total if total_acc is None else total_acc + total
-                    for k, v in breakdown.items():
-                        term_sums[k] = v if k not in term_sums else term_sums[k] + v
-                keys = list(term_sums)
-                sums = epoch_means(torch.stack([total_acc] + [term_sums[k] for k in keys]), keys)
-                host = sums.cpu().numpy()
-                epoch_loss = float(host[0]) / steps
-                if coarse_on:
-                    plateau = plateau_update(plateau, epoch_loss, config.plateau_patience,
-                                             config.plateau_factor)
-                history.append({"epoch": epoch, "loss": epoch_loss,
-                                **{k: float(v) / steps for k, v in zip(keys, host[1:])}})
+        def ensure_vgg_gt(epoch: int) -> None:
+            """The GT VGG pyramids, cached before the first appearance step
+            (and so before an appearance stage's capture)."""
+            if not cache_gt or "vgg_gt" in aux:
+                return
+            with annotate("fit.vgg_gt") as span:
+                masked = decode_frames(data.images) * decode_frames(data.masks_eroded)[..., None]
+                aux["vgg_gt"] = precompute_slices(vgg, masked, chunk=config.vgg_chunk)
+                del masked
+            if logger is not None:
+                logger.log(epoch, vgg_gt_materialize_s=span_s(span))
+
+        def run_actions(label: int, due) -> None:
+            """The logs and checkpoints that fell due in the epochs `due`, once,
+            from the state at epoch `label` (harp_tpu's _run_actions)."""
+            if out_dir is None:
+                return
+            if image_log_every and any(e % image_log_every == 0 for e in due):
+                _log_images(params, data, assets, config, rcfg, out_dir, label, submit)
+            if (val_data is not None and val_log_every
+                    and any(e % val_log_every == 0 for e in due)):
+                _log_val_images(params, val_params, val_data, assets, config, rcfg,
+                                out_dir, label, extras, submit)
+            if checkpoint_every and any(e > 0 and e % checkpoint_every == 0 for e in due):
+                opt_states = {g: opt.state_dict() for g, opt in step.optimizers.items()}
+                extra = {"plateau": dataclasses.asdict(plateau), "ref_verts": ref_verts.cpu()}
+                if ckpt is not None:  # snapshot now, written on its own thread
+                    ckpt.save(label, params, opt_states, plateau.scale, extra=extra)
+                else:
+                    save_result(params, out_dir, test=config.known_appearance)
+                    save_checkpoint(os.path.join(out_dir, "checkpoint.pt"), params,
+                                    opt_states, label, plateau.scale, extra=extra)
+
+        def segment_len(e: int) -> int:
+            """Epochs of the segment from epoch e: at most epoch_scan, within
+            e's stage and the fit (harp_tpu's _segment_len)."""
+            flags = stage_flags(e, config)
+            L = 1
+            while (L < epoch_scan and e + L < config.total_epoch
+                   and stage_flags(e + L, config) == flags):
+                L += 1
+            return L
+
+        def epoch_means(sums: torch.Tensor, keys: list) -> torch.Tensor:
+            """Epoch sums (..., 1 + terms) of this rank -> the mesh's: loss
+            terms the mean over the ranks, overflow counters the sum."""
+            if mesh is None:
+                return sums
+            all_reduce_sum(mesh, sums)
+            counter = torch.tensor([k in OVERFLOW_KEYS for k in ["loss"] + keys],
+                                   device=sums.device)
+            return torch.where(counter, sums, sums / mesh.axis_size())
+
+        scan = None
+        dplateau = DevicePlateau.of(plateau, dev) if use_scan else None
+        try:
+            with deterministic_convolutions():
+                epoch = start_epoch
+                while epoch < config.total_epoch:
+                    coarse_on, app_on = stage_flags(epoch, config)
+                    if app_on:
+                        ensure_vgg_gt(epoch)
+                    if use_scan:
+                        L = segment_len(epoch)
+                        if scan is None or scan.flags != (coarse_on, app_on):
+                            if scan is not None:
+                                scan.close()
+                            scan = make_epoch_scan(
+                                step, data, aux, ref_verts, dplateau, coarse_on=coarse_on,
+                                app_on=app_on, epochs=epoch_scan, steps=steps,
+                                batch=len(range(bs)[rows]), graph=graphs, mesh=mesh)
+                        with annotate("segment.upload") as upload:
+                            fids_es = np.stack([
+                                rng.permutation(n)[:steps * bs].reshape(steps, bs)
+                                for _ in range(L)])[..., rows]
+                            keys_es = subs_all[epoch * steps:(epoch + L) * steps]
+                            scan.upload(fids_es, keys_es.reshape(L, steps, 2))
+                        captured = scan.capture_s
+                        with annotate("segment.replays"):
+                            out = scan.run(config.plateau_patience, config.plateau_factor)
+                        with annotate("segment.read") as read:
+                            sums = epoch_means(out[:, :-1].contiguous(), scan.terms)
+                            parts = [sums.reshape(-1), out[:, -1], dplateau.stacked()]
+                            stamps = scan.stamp_rows()
+                            if stamps is not None:  # every part's bits as int32: no float
+                                # holds a stamp's half, which may read as NaN (--debug-nans)
+                                parts = [p.view(torch.int32) for p in parts]
+                                parts.append(stamps.reshape(-1).view(torch.int32))
+                            host = torch.cat(parts).cpu().numpy()  # the segment's one read
+                            k = sums.shape[1]
+                            m = L * k + L + 3
+                            if stamps is not None:
+                                read["stamps"] = {
+                                    "flags": [coarse_on, app_on], "eager": scan.eager_rows,
+                                    "t": host[m:].copy().view(np.int64).reshape(stamps.shape)}
+                                host = host[:m].view(np.float32)
+                            sums_h, scales_h = host[:L * k].reshape(L, k), host[L * k:L * k + L]
+                            best, bad, scale = host[L * k + L:m]
+                        plateau = PlateauState(best=float(best), bad_epochs=int(bad),
+                                               scale=float(scale))
+                        with annotate("segment.actions") as actions:
+                            run_actions(epoch + L - 1, range(epoch, epoch + L))
+                        timing = {"segment_s": (read["end_ns"] - upload["start_ns"]) / 1e9,
+                                  "actions_s": span_s(actions), "graph": graphs}
+                        if scan.capture_s is not None and captured is None:
+                            timing["capture_s"] = scan.capture_s
+                        for i in range(L):
+                            history.append({"epoch": epoch + i,
+                                            "loss": float(sums_h[i, 0]) / steps,
+                                            **{t: float(v) / steps
+                                               for t, v in zip(scan.terms, sums_h[i, 1:])}})
+                            if logger is not None:
+                                logger.log(epoch + i, lr_scale=float(scales_h[i]),
+                                           **history[-1], **(timing if i == L - 1 else {}))
+                        epoch += L
+                        continue
+                    perm = rng.permutation(n)
+                    total_acc, term_sums = None, {}
+                    for s in range(steps):
+                        fids = torch.as_tensor(perm[s * bs:(s + 1) * bs][rows], device=dev)
+                        total, breakdown = step(
+                            aux, fids, data.images[fids], data.masks[fids],
+                            data.masks_eroded[fids], ref_verts, plateau.scale,
+                            coarse_on=coarse_on, app_on=app_on,
+                            key=subs_all[epoch * steps + s])
+                        # Summed on the device: one host sync an epoch.
+                        total_acc = total if total_acc is None else total_acc + total
+                        for k, v in breakdown.items():
+                            term_sums[k] = v if k not in term_sums else term_sums[k] + v
+                    keys = list(term_sums)
+                    sums = epoch_means(torch.stack([total_acc] + [term_sums[k] for k in keys]),
+                                       keys)
+                    host = sums.cpu().numpy()
+                    epoch_loss = float(host[0]) / steps
+                    if coarse_on:
+                        plateau = plateau_update(plateau, epoch_loss, config.plateau_patience,
+                                                 config.plateau_factor)
+                    history.append({"epoch": epoch, "loss": epoch_loss,
+                                    **{k: float(v) / steps for k, v in zip(keys, host[1:])}})
+                    if logger is not None:
+                        logger.log(epoch, lr_scale=plateau.scale, **history[-1])
+                    run_actions(epoch, (epoch,))
+                    if callback is not None:
+                        callback(epoch, params, history[-1])
+                    epoch += 1
+            if logger is not None:
+                logger.log(config.total_epoch, fit_s=span_s(fit_span))
+        finally:
+            if scan is not None:
+                scan.close()
+            with annotate("fit.drain"):
                 if logger is not None:
-                    logger.log(epoch, lr_scale=plateau.scale, **history[-1])
-                run_actions(epoch, (epoch,))
-                if callback is not None:
-                    callback(epoch, params, history[-1])
-                epoch += 1
-        if logger is not None:
-            logger.log(config.total_epoch, fit_s=time.perf_counter() - t0)
-    finally:
-        if scan is not None:
-            scan.close()
-        if logger is not None:
-            logger.close()
-        if writer is not None:
-            writer.shutdown(wait=True)
-        if ckpt is not None:
-            ckpt.close()
-    for w in writes:
-        w.result()  # a failed log write raises here
-    return params, history
+                    logger.close()
+                if writer is not None:
+                    writer.shutdown(wait=True)
+                if ckpt is not None:
+                    ckpt.close()
+        for w in writes:
+            w.result()  # a failed log write raises here
+        return params, history

@@ -33,6 +33,9 @@ import torch
 from harp_tpu_torch.csrc import build
 from harp_tpu_torch.utils.debug_nans import check_kernel
 
+# Host launches of each kernel, counted by its wrapper: a replayed CUDA graph
+# (the epoch scan's step, the eval program) launches its kernels without the
+# wrapper, so replays are not in these counts.
 LAUNCHES = {"pcf_scatter": 0}
 
 

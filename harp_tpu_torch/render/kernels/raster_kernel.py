@@ -47,6 +47,9 @@ from harp_tpu_torch.render.rasterizer import (
     RasterConfig, f32, face_pixel_geometry, softplus, tile_pixel_coords,
 )
 
+# Host launches of each kernel, counted by its wrapper: a replayed CUDA graph
+# (the epoch scan's step, the eval program) launches its kernels without the
+# wrapper, so replays are not in these counts.
 LAUNCHES = {"raster_ids_soft": 0, "raster_ids_depth": 0, "coverage_grad": 0}
 
 RECT_W, RECT_H = 8, 4  # the pixel rectangle of one warp

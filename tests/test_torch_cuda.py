@@ -748,6 +748,63 @@ def test_epoch_scan_captures_every_stage_flag_pair(scan_fits):
     assert scan_fits["graph"][1][-1]["loss"] < scan_fits["graph"][1][0]["loss"]
 
 
+def test_a_profiled_scan_fit_stamps_every_replay_and_keeps_its_bits(cuda, monkeypatch):
+    """fit_sequence(epoch_scan=2) of the light hand at 64^2, stages 2 / 2 / 2,
+    once plainly and once under a recording torch.profiler: each stage's
+    CUDA graph has the plain graph's kernel nodes plus its stamp nodes
+    (csrc/stamp.cu: nine, eight in stage 1, which has no VGG input to
+    mark), the history and parameters are the same bits, and every
+    replayed step's stamps split into non-negative parts that sum to the
+    step."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from harp_tpu_torch.fit import driver
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.utils import profiling
+
+    assets, config, rcfg, data, init = _light_fit_scene(cuda, n_frames=4, img=64)
+    config = dataclasses.replace(config, batch_size=2, training_stage=(2, 2, 2), total_epoch=6)
+    nodes = []
+    close = driver.EpochScan.close
+
+    def counting_close(self):
+        nodes.append(profiling.graph_kernel_counts(self.graph, {"stamp": "stamp_kernel"}))
+        close(self)
+
+    monkeypatch.setattr(driver.EpochScan, "close", counting_close)
+    runs = []
+    for traced in (False, True):
+        params, aux = init_params(init, assets, config, device=cuda)
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        if traced:
+            prof.start()
+        params, hist = driver.fit_sequence(config, assets, driver.FitData(*data), params, aux,
+                                           rcfg=rcfg, epoch_scan=2)
+        torch.cuda.synchronize()
+        if traced:
+            prof.stop()
+        runs.append((params, hist))
+    plain, stamped = nodes[:3], nodes[3:]
+    assert [c["stamp"] for c, _ in plain] == [0, 0, 0]
+    assert [c["stamp"] for c, _ in stamped] == [8, 9, 9]
+    assert [n + c["stamp"] for (_, n), (c, _) in zip(plain, stamped)] == [n for _, n in stamped]
+    assert runs[0][1] == runs[1][1]
+    for k, p in runs[0][0].items():
+        assert torch.equal(p, runs[1][0][k]), k
+    fit = max((r for r in profiling.spans() if r["name"] == "fit"), key=lambda r: r["id"])
+    reads = [r for r in profiling.spans(fit["id"]) if "stamps" in r]
+    assert [r["stamps"]["eager"] for r in reads] == [1, 1, 1]
+    for r in reads:
+        t = r["stamps"]["t"][1:]
+        assert t.shape == (3, len(profiling.STAMP_SLOTS)) and (t[:, [0, -1]] > 0).all()
+        parts = profiling.step_parts(t)
+        assert all((parts[k] >= 0).all() for k in ("geometry", "render", "vgg", "other", "adam"))
+        assert (sum(parts[k] for k in ("geometry", "render", "vgg", "other", "adam"))
+                == parts["step"]).all()
+
+
 def test_jpeg_frame_crop_on_the_card_is_within_the_decode_bound(cuda, tmp_path):
     """An RGB frame written as JPEG by nvJPEG and cropped on the card
     (nvJPEG's decode, alpha 255) against the crop of the same frame,
