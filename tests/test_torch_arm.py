@@ -43,21 +43,19 @@ from harp_tpu_torch.ops.segment import gather_table
 from harp_tpu_torch.render import pipeline
 from harp_tpu_torch.render.rasterizer import RasterConfig
 
+import _harp_goldens as goldens
+
 IMG, TEX, K = 32, 16, 16
 CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
               self_shadow=True, w_vgg=0.0, batch_size=2, use_arm=True, opt_arm_pose=True)
 RCFG_KW = dict(image_size=IMG, tile=8, cap=1024, face_chunk=256, faces_per_pixel=K,
                span_tiles=4, active_fraction=1.0)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tensors are small, and a pool per process
-    beside the suite's other workers makes each test take minutes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# The step parity tolerances of the docstring, which the golden's regenerator
+# reads too.
+LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-7
+GRAD_TOL = 1e-3  # of each leaf's largest entry
+PARAM_TOL = 1e-2  # of the larger learning rate
 
 
 def _assert_same_arrays(ours, theirs, path="assets"):
@@ -167,14 +165,14 @@ def _scene():
     return init, images, masks, masks_er, {k: v.astype(np.float32) for k, v in appearance.items()}
 
 
-@pytest.fixture(scope="module")
-def both():
-    """One stage-2 arm step in both packages from one state."""
+def _harp_tpu_arm_step() -> dict:
+    """harp_tpu's stage-2 arm step of the scene (its loss, gradient and both
+    Adam groups in one jit), the golden harp_tpu_arm_step.npz: the
+    texture-reg offsets it draws, its total and loss terms, its gradients
+    and the updated parameters."""
     jassets = jbuild_arm(uv_size=TEX, density="light")
-    assets = assets_from_numpy(jassets)
     jconfig = JHarpConfig(pcf_backend="pallas_interpret", **CFG_KW)
-    config = HarpConfig(**CFG_KW)
-    jrcfg, rcfg = JRasterConfig(**RCFG_KW), RasterConfig(**RCFG_KW)
+    jrcfg = JRasterConfig(**RCFG_KW)
     init, images, masks, masks_er, appearance = _scene()
 
     jparams, jaux = jinit_params(init, jassets, jconfig)
@@ -200,6 +198,39 @@ def both():
         return total, br, g, p
 
     jtotal, jbr, jgrads, jnew = jstep(jparams, states)
+    return goldens.pack(offsets_albedo=offsets[0], offsets_normal=offsets[1], total=jtotal,
+                        loss=jbr, grad=jgrads, new=jnew)
+
+
+@pytest.mark.slow
+def test_harp_tpu_golden_of_the_arm_step_is_current():
+    config = HarpConfig(**CFG_KW)
+    lr = max(config.lr_pose, config.lr_app)
+
+    def tolerance(k, want):  # the three test_arm_step_* parity tests
+        if k == "total" or k.startswith("loss."):
+            return LOSS_ATOL + LOSS_RTOL * np.abs(want)
+        if k.startswith("grad."):
+            return GRAD_TOL * max(np.abs(want).max(), 1e-12)
+        if k.startswith("new."):
+            return PARAM_TOL * lr
+        return None
+
+    fresh = _harp_tpu_arm_step()
+    goldens.assert_current("harp_tpu_arm_step", fresh, tolerance)
+
+
+@pytest.fixture(scope="module")
+def both():
+    """One stage-2 arm step in both packages from one state: harp_tpu's
+    stored (_harp_tpu_arm_step), the port's from the same offsets."""
+    assets = assets_from_numpy(jbuild_arm(uv_size=TEX, density="light"))
+    config = HarpConfig(**CFG_KW)
+    rcfg = RasterConfig(**RCFG_KW)
+    init, images, masks, masks_er, appearance = _scene()
+    theirs = goldens.load("harp_tpu_arm_step")
+    offsets = (theirs["offsets_albedo"], theirs["offsets_normal"])
+    fids = np.arange(2)
 
     params, aux = init_params(init, assets, config, device="cpu")
     with torch.no_grad():
@@ -215,8 +246,9 @@ def both():
     total, br = step(aux, fids_t, *[torch.from_numpy(a) for a in (images, masks, masks_er)],
                      ref, coarse_on=True, app_on=True,
                      offsets=tuple(torch.from_numpy(o) for o in offsets))
-    return dict(jtotal=jtotal, jbr=jbr, jgrads=jgrads, jnew=jnew, total=total, br=br,
-                params=params, rout=rout, config=config)
+    return dict(jtotal=theirs["total"], jbr=goldens.part(theirs, "loss"),
+                jgrads=goldens.part(theirs, "grad"), jnew=goldens.part(theirs, "new"),
+                total=total, br=br, params=params, rout=rout, config=config)
 
 
 def test_arm_step_loss_breakdown_matches_harp_tpu(both):
@@ -226,8 +258,9 @@ def test_arm_step_loss_breakdown_matches_harp_tpu(both):
     for k in OVERFLOW_KEYS:
         assert float(br[k]) == float(jbr[k]) == 0.0, k
     for k in jbr:
-        np.testing.assert_allclose(float(br[k]), float(jbr[k]), rtol=1e-4, atol=1e-7, err_msg=k)
-    np.testing.assert_allclose(float(both["total"]), float(both["jtotal"]), rtol=1e-4)
+        np.testing.assert_allclose(float(br[k]), float(jbr[k]), rtol=LOSS_RTOL, atol=LOSS_ATOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(both["total"]), float(both["jtotal"]), rtol=LOSS_RTOL)
     assert float(br["silhouette"]) > 0 and float(br["photo"]) > 0
 
 
@@ -236,7 +269,7 @@ def test_arm_step_gradients_match_harp_tpu_per_leaf(both):
         want = np.asarray(both["jgrads"][k])
         got = p.grad.numpy() if p.grad is not None else np.zeros_like(want)
         scale = max(np.abs(want).max(), 1e-12)
-        assert np.abs(got - want).max() <= 1e-3 * scale, k
+        assert np.abs(got - want).max() <= GRAD_TOL * scale, k
     assert np.abs(np.asarray(both["jgrads"]["wrist_pose"])).max() > 0
 
 
@@ -244,7 +277,7 @@ def test_arm_step_parameters_after_update_match_harp_tpu(both):
     lr = max(both["config"].lr_pose, both["config"].lr_app)
     for k, p in both["params"].items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(both["jnew"][k]),
-                                   rtol=0, atol=1e-2 * lr, err_msg=k)
+                                   rtol=0, atol=PARAM_TOL * lr, err_msg=k)
 
 
 def test_light_gradient_equals_the_float64_light_cameras():

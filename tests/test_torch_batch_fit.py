@@ -55,6 +55,8 @@ from harp_tpu_torch.parallel.launch import launch
 from harp_tpu_torch.render import pipeline
 from harp_tpu_torch.render.rasterizer import RasterConfig
 
+import _harp_goldens as goldens
+
 IMG, TEX, S, NF = 32, 64, 2, 2
 CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
               self_shadow=False, w_vgg=0.0, batch_size=NF,
@@ -62,13 +64,10 @@ CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
 RCFG_KW = dict(image_size=IMG, tile=8, cap=1024, face_chunk=256, faces_per_pixel=16,
                span_tiles=4, active_fraction=1.0)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# The parity tolerances of the docstring, which the golden's regenerator reads
+# too (it holds every entry of a leaf to PARAM_TOL).
+LOSS_RTOL = 1e-3
+PARAM_TOL = 1e-3  # of each leaf's largest entry
 
 
 @pytest.mark.parametrize("seed,num", [(0, 2), (0, 3), (7, 5), (2 ** 32 - 1, 9)])
@@ -138,15 +137,39 @@ def test_batch_step_is_each_sequence_s_lone_step(scene):
     assert torch.equal(unstack_params(stacked, 1)["texture"], params[1]["texture"].detach())
 
 
-@pytest.fixture(scope="module")
-def both(scene):
+def _harp_tpu_batch_fit(scene) -> dict:
+    """harp_tpu's batch fit of the scene, the golden harp_tpu_batch_fit.npz:
+    each sequence's history (hist0, hist1) and final parameters (param0,
+    param1)."""
     pairs = [jinit_params(i, scene["jassets"], scene["jconfig"]) for i in scene["inits"]]
     jdata = JBatchFitData(*[jnp.asarray(a) for a in scene["frames"]])
     jparams, jhist = jfit_sequences_batch(scene["jconfig"], scene["jassets"], jdata,
                                           [p for p, _ in pairs], [a for _, a in pairs],
                                           rcfg=scene["jrcfg"], seed=0)
+    return goldens.pack(**{f"hist{s}": jhist[s] for s in range(S)},
+                        **{f"param{s}": jparams[s] for s in range(S)})
+
+
+@pytest.mark.slow
+def test_harp_tpu_golden_of_the_batch_fit_is_current(scene):
+    def tolerance(k, want):  # test_batch_fit_histories..., test_batch_fit_parameters...
+        if k in {f"hist{s}" for s in range(S)}:
+            return LOSS_RTOL * np.abs(want)
+        if k.startswith("param"):
+            return PARAM_TOL * max(np.abs(want).max(), 1e-12)
+        return None
+
+    goldens.assert_current("harp_tpu_batch_fit", _harp_tpu_batch_fit(scene), tolerance)
+
+
+@pytest.fixture(scope="module")
+def both(scene):
+    """harp_tpu's batch fit (stored, _harp_tpu_batch_fit) and the port's."""
+    theirs = goldens.load("harp_tpu_batch_fit")
     params, hist = _port_batch(scene, seed=0)
-    return dict(jparams=jparams, jhist=jhist, params=params, hist=hist)
+    return dict(jparams=[goldens.part(theirs, f"param{s}") for s in range(S)],
+                jhist=[goldens.part(theirs, f"hist{s}") for s in range(S)], params=params,
+                hist=hist)
 
 
 def test_batch_fit_histories_match_harp_tpu(both):
@@ -155,7 +178,7 @@ def test_batch_fit_histories_match_harp_tpu(both):
         assert [h["epoch"] for h in ours] == [h["epoch"] for h in theirs] == [0, 1, 2]
         for a, b in zip(ours, theirs):
             assert set(a) == set(b) == {"epoch", "loss", "raster_overflow"}
-            np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-3, err_msg=str(b))
+            np.testing.assert_allclose(a["loss"], b["loss"], rtol=LOSS_RTOL, err_msg=str(b))
             assert a["raster_overflow"] == b["raster_overflow"] == 0.0
 
 
@@ -167,7 +190,7 @@ def test_batch_fit_parameters_match_harp_tpu(both):
         for k, p in both["params"][s].items():
             want = np.asarray(both["jparams"][s][k])
             d = np.abs(p.detach().numpy() - want)
-            off = d > 1e-3 * max(np.abs(want).max(), 1e-12)
+            off = d > PARAM_TOL * max(np.abs(want).max(), 1e-12)
             if off.any():  # an edge pixel covered in one package only (docstring)
                 assert k in groups["app"] and off.mean() <= 1e-3, (s, k, int(off.sum()))
                 assert d.max() <= 2 * app_epochs * config.lr_app + 1e-6, (s, k, d.max())

@@ -28,14 +28,6 @@ RECORD_KEYS = {"frames", "device", "frames_per_s", "trimmed_mean_ms", "median_ms
                "vgg", "profile", "loss", "launches", "step_flops", "step_conv_flops"}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _mfu_roofline():
     spec = importlib.util.spec_from_file_location(
         "mfu_roofline", os.path.join(REPO, "scripts", "mfu_roofline.py"))

@@ -16,7 +16,8 @@ written by the port's encoder.
   losses rtol 1e-3, final parameters within 1e-3 of each leaf's largest
   entry; the displacements within 1e-2 of the learning rate, as
   tests/test_torch_step.py holds parameters after Adam (one of 3088 sits
-  in Adam's eps regime).
+  in Adam's eps regime); harp_tpu's fit is read from
+  tests/golden/harp_tpu_real_fit.npz, whose inputs must equal the CLI's.
 - The image and val logs are written, and the fit with them equals one
   without them bit for bit (one thread).
 - --start-from --known-appearance carries the appearance over unchanged.
@@ -54,18 +55,18 @@ from harp_tpu_torch.fit.driver import OVERFLOW_KEYS, fit_sequence
 from harp_tpu_torch.fit.params import init_params
 from harp_tpu_torch.models.zoo import load_hand_model
 
+import _harp_goldens as goldens
+
 IMG, TEX = 32, 64
 FIT_FLAGS = ["--device", "cpu", "--img-size", str(IMG), "--texture-size", str(TEX),
              "--stages", "1", "1", "1", "--epochs", "3", "--batch-size", "2", "--no-vgg",
              "--raster-cap", "4096", "--no-turntables"]
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# The parity tolerances of the docstring, which the golden's regenerator reads
+# too.
+LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-7  # each epoch's loss and terms
+PARAM_TOL = 1e-3  # of each leaf's largest entry
+DISPS_TOL = 1e-2  # of lr_pose, for the displacements
 
 
 @contextlib.contextmanager
@@ -162,20 +163,68 @@ def test_cli_inputs_equal_harp_tpus(root, run):
     np.testing.assert_array_equal(aux["init_joints"].numpy(), np.asarray(jaux["init_joints"]))
 
 
+def _fit_config(run):
+    """The CLI's config with K = 16 soft ids (test_cli_fit_matches_harp_tpus_fit_sequence)."""
+    return dataclasses.replace(run["config"], raster_faces_per_pixel=16)
+
+
+def _harp_tpu_real_fit(root, config) -> dict:
+    """harp_tpu's fit_sequence on the CLI's real-data inputs, the golden
+    harp_tpu_real_fit.npz: the inputs as harp_tpu loads them from the
+    files the port wrote (`frames`, `input`), its history and final
+    parameters."""
+    jassets, jconfig, jinput, jframes = _harp_tpu(root, _config_kw(config))
+    jparams, jaux = jinit_params(jinput, jassets, jconfig)
+    jfinal, jhist = jfit_sequence(jconfig, jassets, JFitData(*map(jnp.asarray, jframes)),
+                                  jparams, jaux, rcfg=jconfig.raster_config(), epoch_scan=0,
+                                  prefetch_compile=False)
+    return goldens.pack(frames=dict(zip(("images", "masks", "masks_eroded"), jframes)),
+                        input=jinput, hist=jhist, param=jfinal)
+
+
+def _assert_golden_inputs(theirs, inputs):
+    """The port's inputs are those harp_tpu's stored fit started from: the
+    files here are written by the port, so a change to its encoder or its
+    synthetic sequence calls for the golden to be written anew
+    (tests/_harp_goldens.py)."""
+    data = inputs["data"]
+    for got, (k, want) in zip((data.images, data.masks, data.masks_eroded),
+                              goldens.part(theirs, "frames").items()):
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{k}: regenerate the golden")
+    for k, want in goldens.part(theirs, "input").items():
+        np.testing.assert_array_equal(inputs["input_params"][k], want,
+                                      err_msg=f"{k}: regenerate the golden")
+
+
+@pytest.mark.slow
+def test_harp_tpu_golden_of_the_real_data_fit_is_current(root, run):
+    config = _fit_config(run)
+
+    def tolerance(k, want):  # test_cli_fit_matches_harp_tpus_fit_sequence
+        if k == "hist":
+            return LOSS_ATOL + LOSS_RTOL * np.abs(want)
+        if k == "param.verts_disps":
+            return DISPS_TOL * config.lr_pose
+        if k.startswith("param."):
+            return PARAM_TOL * max(np.abs(want).max(), 1e-12)
+        return None
+
+    goldens.assert_current("harp_tpu_real_fit", _harp_tpu_real_fit(root, config), tolerance)
+
+
 def test_cli_fit_matches_harp_tpus_fit_sequence(root, run):
     """Both packages' fit_sequence on the CLI's inputs and config, with
     K = 16 soft ids: at the CLI's K = 8, 13 of the 2048 pixels have more
     within-blur faces than K (the reference-density hand's vertex fans),
     and there harp_tpu's K-id silhouette gradient is not the port's
     all-faces one (K2). test_a_fit_with_logs_equals_one_without ties the
-    CLI's own fit to fit_sequence on the same inputs."""
-    config = dataclasses.replace(run["config"], raster_faces_per_pixel=16)
-    jassets, jconfig, jinput, jframes = _harp_tpu(root, _config_kw(config))
-    jparams, jaux = jinit_params(jinput, jassets, jconfig)
-    jfinal, jhist = jfit_sequence(jconfig, jassets, JFitData(*map(jnp.asarray, jframes)),
-                                  jparams, jaux, rcfg=jconfig.raster_config(), epoch_scan=0,
-                                  prefetch_compile=False)
+    CLI's own fit to fit_sequence on the same inputs. harp_tpu's fit is
+    stored (_harp_tpu_real_fit)."""
+    config = _fit_config(run)
+    theirs = goldens.load("harp_tpu_real_fit")
+    jhist, jfinal = goldens.part(theirs, "hist"), goldens.part(theirs, "param")
     inputs = run["inputs"]
+    _assert_golden_inputs(theirs, inputs)
     params, aux = init_params(inputs["input_params"], inputs["assets"], config, device="cpu")
     params, hist = fit_sequence(config, inputs["assets"], inputs["data"], params, aux,
                                 rcfg=config.raster_config(), device="cpu")
@@ -183,8 +232,8 @@ def test_cli_fit_matches_harp_tpus_fit_sequence(root, run):
     for ours, theirs in zip(hist, jhist):
         assert set(ours) == set(theirs)
         for k in theirs:
-            np.testing.assert_allclose(ours[k], float(theirs[k]), rtol=1e-3, atol=1e-7,
-                                       err_msg=f"epoch {theirs['epoch']}: {k}")
+            np.testing.assert_allclose(ours[k], float(theirs[k]), rtol=LOSS_RTOL,
+                                       atol=LOSS_ATOL, err_msg=f"epoch {theirs['epoch']}: {k}")
         assert not any(ours.get(k, 0.0) for k in OVERFLOW_KEYS)
     for k, p in params.items():
         want, got = np.asarray(jfinal[k]), p.detach().numpy()
@@ -194,9 +243,9 @@ def test_cli_fit_matches_harp_tpus_fit_sequence(root, run):
             # rounding; here 1 of 3088 ends 3.0e-6 (0.3% of a step) from
             # harp_tpu's. Held as tests/test_torch_step.py holds parameters
             # after Adam: within 1e-2 of the learning rate.
-            assert np.abs(got - want).max() <= 1e-2 * config.lr_pose, k
+            assert np.abs(got - want).max() <= DISPS_TOL * config.lr_pose, k
             continue
-        assert np.abs(got - want).max() <= 1e-3 * max(np.abs(want).max(), 1e-12), k
+        assert np.abs(got - want).max() <= PARAM_TOL * max(np.abs(want).max(), 1e-12), k
 
 
 def test_cli_writes_the_image_and_val_logs_and_evaluates_val(run):

@@ -10,8 +10,8 @@ in segments of 3 epochs ([0, 1], [2, 3], [4, 5, 6]: the first two end
 with their stages), plateau patience 0 (the float32 plateau on the device
 trips inside a segment), image logs and checkpoints every 2 epochs
 (deferred to the segments' last epochs: labels 1, 3, 6 and 3, 6).
-harp_tpu runs with prefetch_compile=False. One harp_tpu scan fit is shared
-by the module.
+harp_tpu runs with prefetch_compile=False; its scan fit is read from
+tests/golden/harp_tpu_scan_fit.npz (tests/_harp_goldens.py).
 
 Tolerances. Seven epochs part the packages further than the two of the
 loop parity test (tests/test_torch_fit_sequence.py, rtol 1e-3): near-edge
@@ -57,6 +57,8 @@ from harp_tpu_torch.parallel.launch import launch
 from harp_tpu_torch.render.rasterizer import RasterConfig
 from harp_tpu_torch.utils.io import load_checkpoint
 
+import _harp_goldens as goldens
+
 IMG, TEX, N = 32, 64, 4
 CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
               self_shadow=True, w_vgg=1.0, vgg_compute_dtype="float32", batch_size=2,
@@ -66,15 +68,18 @@ RCFG_KW = dict(image_size=IMG, tile=8, cap=1024, face_chunk=256, faces_per_pixel
 SCAN = 3
 LOGS = dict(image_log_every=2, checkpoint_every=2)
 
+# The parity tolerances of the docstring, which the golden's regenerator reads
+# too.
+LOSS_RTOL, LOSS_ATOL = 2e-3, 1e-7  # each epoch's loss and terms
+SCALE_RTOL = 1e-6  # each epoch's lr scale
+PARAM_RTOL = 2e-3  # every leaf, beside _param_atol
+CORE_LEAVES, CORE_TOL = ("pose", "shape", "cam"), 1e-3  # of the leaf's largest entry
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: fits are bit-equal on the CPU only so, and a
-    pool per process slows the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+
+def _param_atol(config) -> float:
+    """harp_tpu's own scan-against-loop bound: two steps of the larger lr an
+    epoch."""
+    return config.total_epoch * 2 * max(config.lr_pose, config.lr_app) + 2e-6
 
 
 @pytest.fixture(scope="module")
@@ -106,33 +111,69 @@ def _metrics(out_dir) -> list:
         return [r for r in map(json.loads, f) if "loss" in r]
 
 
-@pytest.fixture(scope="module")
-def both(scene, tmp_path_factory):
-    """harp_tpu's scan fit and the port's, each with its checkpoint labels."""
+def _recording(labels: list, original):
+    """save_checkpoint that also appends each checkpoint's epoch to labels."""
+    def save(path, params, opt_states, epoch, *a, **k):
+        labels.append(int(epoch))
+        return original(path, params, opt_states, epoch, *a, **k)
+    return save
+
+
+def _harp_tpu_scan_fit(scene, out_dir: str) -> dict:
+    """harp_tpu's scan fit of the scene, the golden harp_tpu_scan_fit.npz:
+    its history and final parameters, the lr scale its metrics.jsonl logs
+    for each epoch, its image logs and its checkpoint labels."""
     import harp_tpu.utils.io as jio
-    import harp_tpu_torch.utils.io as pio
 
-    labels = {"jax": [], "port": []}
-
-    def recording(side, original):
-        def save(path, params, opt_states, epoch, *a, **k):
-            labels[side].append(int(epoch))
-            return original(path, params, opt_states, epoch, *a, **k)
-        return save
-
-    jout = str(tmp_path_factory.mktemp("jax_scan"))
-    out = str(tmp_path_factory.mktemp("port_scan"))
+    labels = []
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jio, "save_checkpoint", recording("jax", jio.save_checkpoint))
-        mp.setattr(pio, "save_checkpoint", recording("port", pio.save_checkpoint))
+        mp.setattr(jio, "save_checkpoint", _recording(labels, jio.save_checkpoint))
         jparams, jaux = jinit_params(scene["init"], scene["jassets"], scene["jconfig"])
         jdata = JFitData(*[jnp.asarray(a) for a in scene["arrays"]])
         jfinal, jhist = jfit_sequence(scene["jconfig"], scene["jassets"], jdata, jparams, jaux,
                                       rcfg=scene["jrcfg"], epoch_scan=SCAN,
-                                      prefetch_compile=False, out_dir=jout, **LOGS)
+                                      prefetch_compile=False, out_dir=out_dir, **LOGS)
+    images = sorted(f[:-len(".jpg")] for f in os.listdir(out_dir) if f.endswith(".jpg"))
+    return goldens.pack(hist=jhist, param=jfinal,
+                        lr_scale=[r["lr_scale"] for r in _metrics(out_dir)], images=images,
+                        checkpoint_labels=sorted(labels))
+
+
+@pytest.mark.slow
+def test_harp_tpu_golden_of_the_scan_fit_is_current(scene, tmp_path):
+    atol = _param_atol(scene["config"])
+
+    def tolerance(k, want):  # test_scan_epoch_losses..., lr_scales..., final_parameters...
+        if k == "hist":
+            return LOSS_ATOL + LOSS_RTOL * np.abs(want)
+        if k == "lr_scale":
+            return SCALE_RTOL * np.abs(want)
+        if k[len("param."):] in CORE_LEAVES:
+            return CORE_TOL * max(np.abs(want).max(), 1e-12)
+        if k.startswith("param."):
+            return atol + PARAM_RTOL * np.abs(want)
+        return None
+
+    goldens.assert_current("harp_tpu_scan_fit", _harp_tpu_scan_fit(scene, str(tmp_path)),
+                           tolerance)
+
+
+@pytest.fixture(scope="module")
+def both(scene, tmp_path_factory):
+    """harp_tpu's scan fit (stored, _harp_tpu_scan_fit) and the port's, each
+    with its checkpoint labels."""
+    import harp_tpu_torch.utils.io as pio
+
+    labels = []
+    out = str(tmp_path_factory.mktemp("port_scan"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pio, "save_checkpoint", _recording(labels, pio.save_checkpoint))
         params, hist = _port_fit(scene, epoch_scan=SCAN, out_dir=out, **LOGS)
-    return dict(jfinal=jfinal, jhist=jhist, jout=jout, params=params, hist=hist, out=out,
-                labels=labels)
+    theirs = goldens.load("harp_tpu_scan_fit")
+    return dict(jfinal=goldens.part(theirs, "param"), jhist=goldens.part(theirs, "hist"),
+                jlr_scale=theirs["lr_scale"].tolist(), jimages=theirs["images"].tolist(),
+                params=params, hist=hist, out=out,
+                labels={"jax": theirs["checkpoint_labels"].tolist(), "port": labels})
 
 
 def test_scan_epoch_losses_and_terms_match_harp_tpu(both):
@@ -141,39 +182,37 @@ def test_scan_epoch_losses_and_terms_match_harp_tpu(both):
     for ours, theirs in zip(both["hist"], both["jhist"]):
         assert set(ours) == set(theirs)
         for k in theirs:
-            np.testing.assert_allclose(ours[k], float(theirs[k]), rtol=2e-3, atol=1e-7,
-                                       err_msg=f"epoch {theirs['epoch']}: {k}")
+            np.testing.assert_allclose(ours[k], float(theirs[k]), rtol=LOSS_RTOL,
+                                       atol=LOSS_ATOL, err_msg=f"epoch {theirs['epoch']}: {k}")
 
 
 def test_scan_lr_scales_and_plateau_trips_match_harp_tpu(both):
     """The float32 device plateau trips at harp_tpu's epochs, some of them
     inside a segment (not its last epoch), and every epoch logs its scale."""
     ours = [r["lr_scale"] for r in _metrics(both["out"])]
-    theirs = [r["lr_scale"] for r in _metrics(both["jout"])]
+    theirs = both["jlr_scale"]
     assert len(ours) == len(theirs) == 7
-    np.testing.assert_allclose(ours, theirs, rtol=1e-6)
+    np.testing.assert_allclose(ours, theirs, rtol=SCALE_RTOL)
     trips = [e for e in range(7) if ours[e] != (ours[e - 1] if e else 1.0)]
     assert trips == [e for e in range(7) if theirs[e] != (theirs[e - 1] if e else 1.0)]
     assert set(trips) - {1, 3, 6}, f"no trip inside a segment: {trips}"
 
 
 def test_scan_final_parameters_match_harp_tpu(both, scene):
-    config = scene["config"]
-    lr = max(config.lr_pose, config.lr_app)
     for k, p in both["params"].items():
         want = np.asarray(both["jfinal"][k])
         got = p.detach().numpy()
-        np.testing.assert_allclose(got, want, rtol=2e-3,
-                                   atol=config.total_epoch * 2 * lr + 2e-6, err_msg=k)
-        if k in ("pose", "shape", "cam"):
-            assert np.abs(got - want).max() <= 1e-3 * max(np.abs(want).max(), 1e-12), k
+        np.testing.assert_allclose(got, want, rtol=PARAM_RTOL, atol=_param_atol(scene["config"]),
+                                   err_msg=k)
+        if k in CORE_LEAVES:
+            assert np.abs(got - want).max() <= CORE_TOL * max(np.abs(want).max(), 1e-12), k
 
 
 def test_scan_defers_logs_and_checkpoints_to_harp_tpus_labels(both):
     def logged(out_dir, ext):
         return sorted(f[:-len(ext)] for f in os.listdir(out_dir) if f.endswith(ext))
 
-    assert logged(both["out"], ".jpg") == logged(both["jout"], ".jpg") == [
+    assert logged(both["out"], ".jpg") == both["jimages"] == [
         "0001", "0003", "0006", "sil_0001", "sil_0003", "sil_0006"]
     assert both["labels"]["port"] == sorted(both["labels"]["jax"]) == [3, 6]
     lines = _metrics(both["out"])
@@ -187,7 +226,7 @@ def test_device_plateau_update_matches_harp_tpus_scan(both):
     means) gives the lr scales harp_tpu's scan logged, in coarse epochs;
     and on a sweep of losses its decisions equal the host update's."""
     state = DevicePlateau.of(PlateauState(), "cpu")
-    theirs = [r["lr_scale"] for r in _metrics(both["jout"])]
+    theirs = both["jlr_scale"]
     for e, h in enumerate(both["jhist"][:4]):  # epochs 0-3: the coarse stages
         plateau_update_device(state, torch.tensor(np.float32(h["loss"])), patience=0)
         assert float(state.scale) == pytest.approx(theirs[e], rel=1e-6), e

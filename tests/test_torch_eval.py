@@ -5,7 +5,8 @@ Metrics and renders take the same numpy-seeded inputs in both packages.
 Tolerances: IoU equal; L1, SSIM, MS-SSIM and the perceptual proxy rtol
 1e-5 (float32 filters summed in other orders); renders (normal and
 shadowed colour, 32^2 light-density hand, 2 frames, texture 64^2) within
-1e-4 (measured 6.4e-6: the ids are equal, XLA:CPU contracts FMAs);
+1e-4 (measured 6.4e-6: the ids are equal, XLA:CPU contracts FMAs;
+harp_tpu's renders are read from tests/golden/harp_tpu_eval_renders.npz);
 Procrustes and PCK in float64, rtol 1e-10.
 """
 
@@ -37,22 +38,14 @@ from harp_tpu_torch.render.rasterizer import RasterConfig
 from harp_tpu_torch.render.shadow import render_rgb_with_shadow
 from harp_tpu_torch.utils import viz
 
+import _harp_goldens as goldens
+
 IMG, TEX = 32, 64
 CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
               self_shadow=True, batch_size=2)
 RCFG_KW = dict(image_size=IMG, tile=8, cap=1024, face_chunk=256, faces_per_pixel=16,
                span_tiles=4, active_fraction=1.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tensors are small, and a pool of threads
-    per process beside the suite's other parallel workers makes each test
-    take minutes (and fits bit-equal only on one thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+RENDER_ATOL = 1e-4  # the renders' parity tolerance, which the golden's regenerator reads too
 
 
 def _images(size, seed=0, n=2):
@@ -140,14 +133,31 @@ def scene():
                 rcfg=RasterConfig(**RCFG_KW))
 
 
-@pytest.mark.parametrize("render", ["normal", "rgb_with_shadow"])
-def test_eval_render_matches_harp_tpu(scene, render):
-    gt = scene["gt"]
-    jgt = {k: jnp.asarray(v) for k, v in gt.items()}
+def _harp_tpu_eval_renders(scene) -> dict:
+    """harp_tpu's eval renders of the scene's GT parameters (2 frames), the
+    golden harp_tpu_eval_renders.npz: `normal` and `rgb_with_shadow`."""
+    jgt = {k: jnp.asarray(v) for k, v in scene["gt"].items()}
     fids = jnp.arange(2)
     jassets, jconfig, jrcfg = scene["jassets"], scene["jconfig"], scene["jrcfg"]
     verts, _ = jpipeline.mesh_forward(jgt, fids, jassets, jconfig)
     R, T = jpipeline.camera_for_frames(jgt, fids, jconfig)
+    light = jnp.broadcast_to(jgt["light_positions"][0], (2, 3))
+    return goldens.pack(
+        normal=jpipeline.render_normal(verts, jassets, R, T, jconfig, jrcfg, jgt["normal_map"]),
+        rgb_with_shadow=jrender_rgb_with_shadow(verts, jassets, jconfig, jrcfg, jgt["cam"][fids],
+                                                light, jgt["amb_ratio"], jgt["texture"],
+                                                jgt["normal_map"]))
+
+
+@pytest.mark.slow
+def test_harp_tpu_golden_of_the_eval_renders_is_current(scene):
+    goldens.assert_current("harp_tpu_eval_renders", _harp_tpu_eval_renders(scene),
+                           lambda k, want: RENDER_ATOL)
+
+
+@pytest.mark.parametrize("render", ["normal", "rgb_with_shadow"])
+def test_eval_render_matches_harp_tpu(scene, render):
+    gt = scene["gt"]
     p = params_from_numpy(gt, "cpu")
     tf = torch.arange(2)
     counters = {}
@@ -155,21 +165,16 @@ def test_eval_render_matches_harp_tpu(scene, render):
         v, _ = pipeline.mesh_forward(p, tf, scene["assets"], scene["config"])
         R2, T2 = pipeline.camera_for_frames(p, tf, scene["config"])
         if render == "normal":
-            want = jpipeline.render_normal(verts, jassets, R, T, jconfig, jrcfg, jgt["normal_map"])
             got = pipeline.render_normal(v, scene["assets"], R2, T2, scene["config"],
                                          scene["rcfg"], p["normal_map"], counters)
         else:
-            light = jnp.broadcast_to(jgt["light_positions"][0], (2, 3))
-            want = jrender_rgb_with_shadow(verts, jassets, jconfig, jrcfg, jgt["cam"][fids],
-                                           light, jgt["amb_ratio"], jgt["texture"],
-                                           jgt["normal_map"])
             got = render_rgb_with_shadow(v, scene["assets"], scene["config"], scene["rcfg"],
                                          p["cam"][tf], p["light_positions"][0].expand(2, 3),
                                          p["amb_ratio"], p["texture"], p["normal_map"],
                                          counters)
-    want = np.asarray(want)
+    want = goldens.load("harp_tpu_eval_renders")[render]
     assert got.shape == want.shape == (2, IMG, IMG, 3)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=RENDER_ATOL)
     assert (want != 1.0).any() and (want == 1.0).any()  # hand and background
     assert counters and not any(int(c) for c in counters.values())
 

@@ -42,14 +42,6 @@ RCFG_KW = dict(image_size=IMG, tile=8, cap=1024, face_chunk=256, faces_per_pixel
                span_tiles=4, active_fraction=1.0)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _perturbed(gt: dict, seed: int) -> dict:
     """GT parameters with the pose, camera and texture moved: the metrics
     are then neither perfect nor trivial."""

@@ -9,7 +9,8 @@ packages draw the same minibatch permutations (numpy RandomState) and the
 same texture-reg offsets (threefry key stream; the port draws them on the
 device from the same subkeys). K = 16 soft ids hold every within-blur
 face of this scene (checked), so harp_tpu's K-id silhouette gradient and
-the port's all-faces one (K2) are the same function.
+the port's all-faces one (K2) are the same function. harp_tpu's fit is
+read from tests/golden/harp_tpu_loop_fit.npz (tests/_harp_goldens.py).
 
 Tolerances: per-epoch loss and each term rtol 1e-3; final parameters
 within 1e-3 of each leaf's largest entry (float32 sums in other orders and
@@ -43,6 +44,8 @@ from harp_tpu_torch.render import pipeline
 from harp_tpu_torch.render.rasterizer import RasterConfig, raster_compact
 from harp_tpu_torch.utils.io import load_checkpoint
 
+import _harp_goldens as goldens
+
 IMG, TEX = 32, 64
 CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
               self_shadow=True, w_vgg=1.0, vgg_compute_dtype="float32", batch_size=2,
@@ -50,16 +53,10 @@ CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
 RCFG_KW = dict(image_size=IMG, tile=8, cap=1024, face_chunk=256, faces_per_pixel=16,
                span_tiles=4, active_fraction=1.0)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tensors are small, and a pool of threads
-    per process beside the suite's other parallel workers makes each test
-    take minutes (and fits bit-equal only on one thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# The parity tolerances of the docstring, which the golden's regenerator reads
+# too.
+LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-7  # each epoch's loss and terms
+PARAM_TOL = 1e-3  # of each leaf's largest entry
 
 
 @pytest.fixture(scope="module")
@@ -83,12 +80,33 @@ def _port_fit(scene, config=None, **kw):
                         device="cpu", **kw)
 
 
-@pytest.fixture(scope="module")
-def both(scene, tmp_path_factory):
+def _harp_tpu_loop_fit(scene) -> dict:
+    """harp_tpu's per-step fit of the scene, the golden
+    harp_tpu_loop_fit.npz: its history and final parameters."""
     jparams, jaux = jinit_params(scene["init"], scene["jassets"], scene["jconfig"])
     jdata = JFitData(*[jnp.asarray(a) for a in scene["arrays"]])
     jfinal, jhist = jfit_sequence(scene["jconfig"], scene["jassets"], jdata, jparams, jaux,
                                   rcfg=scene["jrcfg"], epoch_scan=0, prefetch_compile=False)
+    return goldens.pack(hist=jhist, param=jfinal)
+
+
+@pytest.mark.slow
+def test_harp_tpu_golden_of_the_loop_fit_is_current(scene):
+    def tolerance(k, want):  # test_fit_sequence_epoch_losses..., final_parameters...
+        if k == "hist":
+            return LOSS_ATOL + LOSS_RTOL * np.abs(want)
+        if k.startswith("param."):
+            return PARAM_TOL * max(np.abs(want).max(), 1e-12)
+        return None
+
+    goldens.assert_current("harp_tpu_loop_fit", _harp_tpu_loop_fit(scene), tolerance)
+
+
+@pytest.fixture(scope="module")
+def both(scene, tmp_path_factory):
+    """harp_tpu's fit (stored, _harp_tpu_loop_fit) and the port's."""
+    theirs = goldens.load("harp_tpu_loop_fit")
+    jhist, jfinal = goldens.part(theirs, "hist"), goldens.part(theirs, "param")
     out_dir = str(tmp_path_factory.mktemp("fit"))
     params, hist = _port_fit(scene, out_dir=out_dir)
     return dict(jfinal=jfinal, jhist=jhist, params=params, hist=hist, out_dir=out_dir)
@@ -143,8 +161,8 @@ def test_fit_sequence_epoch_losses_match_harp_tpu(both):
     for ours, theirs in zip(both["hist"], both["jhist"]):
         assert set(ours) == set(theirs)
         for k in theirs:
-            np.testing.assert_allclose(ours[k], float(theirs[k]), rtol=1e-3, atol=1e-7,
-                                       err_msg=f"epoch {theirs['epoch']}: {k}")
+            np.testing.assert_allclose(ours[k], float(theirs[k]), rtol=LOSS_RTOL,
+                                       atol=LOSS_ATOL, err_msg=f"epoch {theirs['epoch']}: {k}")
     assert both["hist"][1]["vgg"] > 0 and both["hist"][1]["photo"] > 0
 
 
@@ -152,7 +170,7 @@ def test_fit_sequence_final_parameters_match_harp_tpu(both):
     for k, p in both["params"].items():
         want = np.asarray(both["jfinal"][k])
         got = p.detach().numpy()
-        assert np.abs(got - want).max() <= 1e-3 * max(np.abs(want).max(), 1e-12), k
+        assert np.abs(got - want).max() <= PARAM_TOL * max(np.abs(want).max(), 1e-12), k
 
 
 def test_fit_sequence_jsonl_has_every_term_and_overflow_counter(both):
@@ -169,7 +187,7 @@ def test_fit_sequence_jsonl_has_every_term_and_overflow_counter(both):
 def test_checkpoint_resume_equals_an_unbroken_fit(scene, tmp_path):
     """Four epochs (stages 1 / 2 / 1) in one go, and the same fit stopped
     after its epoch-1 checkpoint and resumed from it: the same bits (on one
-    CPU thread, the module's fixture: PyTorch's CPU backward of a gather
+    CPU thread, tests/conftest.py's fixture: PyTorch's CPU backward of a gather
     accumulates in parallel)."""
     assert torch.get_num_threads() == 1
     config = dataclasses.replace(scene["config"], training_stage=(1, 2, 1), total_epoch=4)

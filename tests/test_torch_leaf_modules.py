@@ -40,14 +40,6 @@ from harp_tpu_torch.utils import opt_utils as OPT
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _t(x):
     return torch.tensor(np.asarray(x), requires_grad=True)
 

@@ -8,10 +8,13 @@ backend of fit_sequence, the CLI and load_fit_checkpoint, on the CPU.
 - A fit killed after its orbax checkpoint and resumed is the same bits as
   the unbroken fit (one thread), through fit_sequence and through the CLI's
   --checkpoint-backend orbax / --resume-orbax.
-- A harp_tpu fit's own Orbax (OCDBT) checkpoint, read by harp_tpu's
+- A harp_tpu Orbax (OCDBT) checkpoint, read by harp_tpu's
   load_fit_checkpoint and carried across with params_from_numpy and
   opt_states_from_numpy, resumes in the port and ends where harp_tpu's
-  unbroken fit ends: the scene and tolerances of
+  unbroken fit ends. harp_tpu's OrbaxCheckpointer writes it here from the
+  state harp_tpu's fit handed it, stored with the fit (a golden); that the
+  fit writes the same checkpoint as it runs is tested only in harp_tpu's
+  own suite (tests/test_checkpoint_orbax.py). The scene and tolerances of
   tests/test_torch_fit_sequence.py (light hand, 2 frames at 32^2, texture
   64^2, self-shadow, K = 16; losses rtol 1e-3, parameters within 1e-3 of
   each leaf's largest entry), without VGG.
@@ -22,6 +25,7 @@ import os
 import pickle
 import threading
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +50,8 @@ from harp_tpu_torch.render.rasterizer import RasterConfig
 from harp_tpu_torch.utils import orbax_io
 from harp_tpu_torch.utils.orbax_io import OrbaxCheckpointer
 
+import _harp_goldens as goldens
+
 IMG, TEX = 32, 64
 CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
               self_shadow=True, w_vgg=0.0, batch_size=2, training_stage=(1, 3, 0),
@@ -53,13 +59,10 @@ CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
 RCFG_KW = dict(image_size=IMG, tile=8, cap=1024, face_chunk=256, faces_per_pixel=16,
                span_tiles=4, active_fraction=1.0)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# The parity tolerances of the docstring, which the golden's regenerator reads
+# too.
+LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-7  # each epoch's loss and terms
+PARAM_TOL = 1e-3  # of each leaf's largest entry
 
 
 def _state(seed=0):
@@ -211,18 +214,82 @@ def test_cli_orbax_backend_and_resume_orbax(tmp_path):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_a_harp_tpu_orbax_checkpoint_resumes_in_the_port(scene, tmp_path):
-    """harp_tpu fits 4 epochs (stages 1 / 3), writing its Orbax checkpoint
-    at epoch 2 as it goes (tests/test_checkpoint_orbax.py's recipe: the
-    state a fit killed after that checkpoint leaves). The port resumes from
-    it for epoch 3 and must end where harp_tpu ended."""
+def _harp_tpu_orbax_fit(scene, out_dir: str) -> dict:
+    """harp_tpu's 4-epoch fit (stages 1 / 3) with its Orbax checkpoint at
+    epoch 2, the golden harp_tpu_orbax_fit.npz: the history and final
+    parameters, and what the fit handed its checkpointer (`ckpt_epoch`,
+    `ckpt_params`, the optimizer states' leaves in tree order `ckpt_opt`,
+    `ckpt_scale`, `ckpt_plateau`, `ckpt_ref_verts`)."""
+    from harp_tpu.utils.orbax_io import OrbaxCheckpointer as JOrbaxCheckpointer
+
+    saved = []
+    original = JOrbaxCheckpointer.save
+
+    def save(self, step, params, opt_states, plateau_scale=1.0, extra=None):
+        saved.append(dict(ckpt_epoch=step, ckpt_params=jax.tree.map(np.asarray, params),
+                          ckpt_opt={f"{i:03d}": np.asarray(v)
+                                    for i, v in enumerate(jax.tree.leaves(opt_states))},
+                          ckpt_scale=plateau_scale, ckpt_plateau=dict(extra["plateau"]),
+                          ckpt_ref_verts=np.asarray(extra["ref_verts"])))
+        return original(self, step, params, opt_states, plateau_scale, extra=extra)
+
     jconfig = dataclasses.replace(scene["jconfig"], checkpoint_backend="orbax")
     jparams, jaux = jinit_params(scene["init"], scene["jassets"], jconfig)
-    template = {k: np.asarray(v) for k, v in jparams.items()}
     jdata = JFitData(*[jnp.asarray(a) for a in scene["arrays"]])
-    jfinal, jhist = jfit_sequence(jconfig, scene["jassets"], jdata, jparams, jaux,
-                                  rcfg=scene["jrcfg"], out_dir=str(tmp_path),
-                                  checkpoint_every=2, epoch_scan=0, prefetch_compile=False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JOrbaxCheckpointer, "save", save)
+        jfinal, jhist = jfit_sequence(jconfig, scene["jassets"], jdata, jparams, jaux,
+                                      rcfg=scene["jrcfg"], out_dir=out_dir, checkpoint_every=2,
+                                      epoch_scan=0, prefetch_compile=False)
+    assert [s["ckpt_epoch"] for s in saved] == [2]
+    return goldens.pack(hist=jhist, param=jfinal, **saved[0])
+
+
+def _write_harp_tpu_checkpoint(theirs: dict, jparams: dict, jconfig, out_dir: str) -> None:
+    """harp_tpu's checkpointer writes the state its fit saved (the golden's
+    `ckpt_*`) into out_dir, as the fit's own call did."""
+    from harp_tpu.fit.optimizer import build_optimizers as jbuild_optimizers
+    from harp_tpu.utils.orbax_io import OrbaxCheckpointer as JOrbaxCheckpointer
+
+    _, states, _ = jbuild_optimizers(jparams, jconfig)
+    leaves = goldens.part(theirs, "ckpt_opt")
+    opt_states = jax.tree.unflatten(jax.tree.structure(states),
+                                    [jnp.asarray(leaves[k]) for k in sorted(leaves)])
+    params = {k: jnp.asarray(v) for k, v in goldens.part(theirs, "ckpt_params").items()}
+    plateau = {k: v.item() for k, v in goldens.part(theirs, "ckpt_plateau").items()}
+    with JOrbaxCheckpointer(out_dir) as ckpt:
+        ckpt.save(int(theirs["ckpt_epoch"]), params, opt_states, float(theirs["ckpt_scale"]),
+                  extra={"plateau": plateau, "ref_verts": theirs["ckpt_ref_verts"]})
+
+
+@pytest.mark.slow
+def test_harp_tpu_golden_of_the_orbax_fit_is_current(scene, tmp_path):
+    def tolerance(k, want):  # test_a_harp_tpu_orbax_checkpoint_resumes_in_the_port's
+        if k == "hist":
+            return LOSS_ATOL + LOSS_RTOL * np.abs(want)
+        if want.dtype.kind == "f" and k.split(".")[0] in ("param", "ckpt_params", "ckpt_opt",
+                                                          "ckpt_ref_verts", "ckpt_plateau"):
+            return PARAM_TOL * max(np.abs(want).max(), 1e-12)
+        return None
+
+    goldens.assert_current("harp_tpu_orbax_fit", _harp_tpu_orbax_fit(scene, str(tmp_path)),
+                           tolerance)
+
+
+def test_a_harp_tpu_orbax_checkpoint_resumes_in_the_port(scene, tmp_path):
+    """harp_tpu fits 4 epochs (stages 1 / 3) and hands its Orbax
+    checkpointer the state of epoch 2 (tests/test_checkpoint_orbax.py's
+    recipe: the state a fit killed after that checkpoint leaves). That state
+    is stored with the fit's results (_harp_tpu_orbax_fit), and here
+    harp_tpu's checkpointer writes it; the fit's own writing as it runs is
+    tested only in harp_tpu's suite. The port resumes from it for epoch 3
+    and must end where harp_tpu ended."""
+    jconfig = dataclasses.replace(scene["jconfig"], checkpoint_backend="orbax")
+    jparams, _ = jinit_params(scene["init"], scene["jassets"], jconfig)
+    template = {k: np.asarray(v) for k, v in jparams.items()}
+    theirs = goldens.load("harp_tpu_orbax_fit")
+    jhist, jfinal = goldens.part(theirs, "hist"), goldens.part(theirs, "param")
+    _write_harp_tpu_checkpoint(theirs, jparams, jconfig, str(tmp_path))
     # The port's reader refuses harp_tpu's tree, naming the route below.
     with pytest.raises(ValueError, match="opt_states_from_numpy"):
         load_fit_checkpoint(str(tmp_path), device="cpu")
@@ -246,9 +313,9 @@ def test_a_harp_tpu_orbax_checkpoint_resumes_in_the_port(scene, tmp_path):
     resumed, rhist = _port_fit(scene, config, params=params, resume=resume)
     assert [h["epoch"] for h in rhist] == [3]
     for k in jhist[3]:
-        np.testing.assert_allclose(rhist[0][k], float(jhist[3][k]), rtol=1e-3, atol=1e-7,
-                                   err_msg=k)
+        np.testing.assert_allclose(rhist[0][k], float(jhist[3][k]), rtol=LOSS_RTOL,
+                                   atol=LOSS_ATOL, err_msg=k)
     for k, p in resumed.items():
         want = np.asarray(jfinal[k])
-        assert np.abs(p.detach().numpy() - want).max() <= 1e-3 * max(np.abs(want).max(),
-                                                                     1e-12), k
+        assert np.abs(p.detach().numpy() - want).max() <= PARAM_TOL * max(np.abs(want).max(),
+                                                                           1e-12), k

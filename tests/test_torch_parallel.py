@@ -50,14 +50,6 @@ SHARED = np.asarray([0.3, -0.2, 0.5, 0.1], np.float32)
 FRAMES = np.arange(N * 4, dtype=np.float32).reshape(N, 4) / 10.0
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def scene():
     assets = build_synthetic_assets(uv_size=32, density="light")

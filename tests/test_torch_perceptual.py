@@ -29,17 +29,6 @@ from harp_tpu_torch.losses import perceptual as P
 B, H = 2, 32
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tensors are small, and a pool of threads
-    per process beside the suite's other parallel workers makes each test
-    take minutes (and fits bit-equal only on one thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _images():
     rng = np.random.RandomState(0)
     pred = rng.uniform(0, 1, (B, H, H, 3)).astype(np.float32)

@@ -31,14 +31,6 @@ from harp_tpu_torch.models.mano import mano_forward
 from harp_tpu_torch.models.nimble import build_synthetic_nimble
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

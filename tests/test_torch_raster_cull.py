@@ -24,17 +24,6 @@ IMG = 32
 BLUR_1PX = 4e-3  # blur_radius (NDC^2) of blur_px2 ~ 1 px^2 at 32^2
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread. These tensors are small: a test takes under a
-    second on one thread, while a pool of threads per process, beside the
-    suite's other parallel workers, made each take minutes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def random_scene(seed, n, B=2, spread=4.0):
     rng = np.random.RandomState(seed)
     verts = np.zeros((B, n * 3, 3), np.float32)

@@ -37,14 +37,6 @@ CLI = ["--synthetic", "--device", "cpu", "--n-frames", "2", "--img-size", "32",
        "--no-turntables"]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_interpolate_poses_30_is_exact():
     pose = np.random.RandomState(0).randn(95, 45).astype(np.float32)
     want = np.asarray(jinterpolate_poses_30(jnp.asarray(pose)))

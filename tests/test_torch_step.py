@@ -40,11 +40,19 @@ from harp_tpu_torch.fit.params import init_params
 from harp_tpu_torch.render import pipeline
 from harp_tpu_torch.render.rasterizer import RasterConfig, raster_compact
 
+import _harp_goldens as goldens
+
 IMG, TEX, K = 32, 16, 16
 CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
               self_shadow=True, w_vgg=0.0, batch_size=2)
 RCFG_KW = dict(image_size=IMG, tile=8, cap=512, face_chunk=256, faces_per_pixel=K,
                span_tiles=4, active_fraction=1.0)
+
+# The step parity tolerances of the docstring, which the golden's regenerator
+# reads too.
+LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-7
+GRAD_TOL = 1e-3  # of each leaf's largest entry
+PARAM_TOL = 1e-2  # of the larger learning rate
 
 
 def _scene():
@@ -70,12 +78,14 @@ def _scene():
     return init, images, masks, masks_er, {k: v.astype(np.float32) for k, v in appearance.items()}
 
 
-def _run_both(uniform: bool = False):
+def _harp_tpu_step(uniform: bool) -> dict:
+    """harp_tpu's train step of the scene (its loss, gradient and both Adam
+    groups in one jit), the golden harp_tpu_step.npz (harp_tpu_step_uniform.npz
+    from harp_tpu's uniform initial maps): the texture-reg offsets it draws,
+    its total and loss terms, its gradients and the updated parameters."""
     jassets = jbuild(uv_size=TEX, density="light")
-    assets = assets_from_numpy(jassets)
     jconfig = JHarpConfig(pcf_backend="pallas_interpret", **CFG_KW)
-    config = HarpConfig(**CFG_KW)
-    jrcfg, rcfg = JRasterConfig(**RCFG_KW), RasterConfig(**RCFG_KW)
+    jrcfg = JRasterConfig(**RCFG_KW)
     init, images, masks, masks_er, appearance = _scene()
     if uniform:
         appearance = {}
@@ -104,6 +114,45 @@ def _run_both(uniform: bool = False):
         return total, br, g, p
 
     jtotal, jbr, jgrads, jnew = jstep(jparams, states)
+    return goldens.pack(offsets_albedo=offsets[0], offsets_normal=offsets[1], total=jtotal,
+                        loss=jbr, grad=jgrads, new=jnew)
+
+
+def _golden_name(uniform: bool) -> str:
+    return "harp_tpu_step_uniform" if uniform else "harp_tpu_step"
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("uniform", [False, True], ids=["maps", "uniform"])
+def test_harp_tpu_golden_of_the_step_is_current(uniform):
+    config = HarpConfig(**CFG_KW)
+    lr = max(config.lr_pose, config.lr_app)
+
+    def tolerance(k, want):  # _check_loss_breakdown, _check_gradients, _check_parameters
+        if k == "total" or k.startswith("loss."):
+            return LOSS_ATOL + LOSS_RTOL * np.abs(want)
+        if k.startswith("grad."):
+            return GRAD_TOL * max(np.abs(want).max(), 1e-12)
+        if k.startswith("new."):
+            return PARAM_TOL * lr
+        return None
+
+    fresh = _harp_tpu_step(uniform)
+    goldens.assert_current(_golden_name(uniform), fresh, tolerance)
+
+
+def _run_both(uniform: bool = False):
+    """harp_tpu's step (stored, _harp_tpu_step) and the port's from the same
+    state, offsets and frames."""
+    assets = assets_from_numpy(jbuild(uv_size=TEX, density="light"))
+    config = HarpConfig(**CFG_KW)
+    rcfg = RasterConfig(**RCFG_KW)
+    init, images, masks, masks_er, appearance = _scene()
+    if uniform:
+        appearance = {}
+    theirs = goldens.load(_golden_name(uniform))
+    offsets = (theirs["offsets_albedo"], theirs["offsets_normal"])
+    fids = np.arange(2)
 
     params, aux = init_params(init, assets, config, device="cpu")
     with torch.no_grad():
@@ -119,8 +168,9 @@ def _run_both(uniform: bool = False):
         verts, _ = pipeline.mesh_forward(old, torch.from_numpy(fids), assets, config)
         R, T = pipeline.camera_for_frames(old, torch.from_numpy(fids), config)
         _, rout = pipeline.raster_camera_view_compact(verts, assets, R, T, config, rcfg)
-    return dict(jtotal=jtotal, jbr=jbr, jgrads=jgrads, jnew=jnew, total=total, br=br,
-                params=params, old=old, rout=rout, config=config)
+    return dict(jtotal=theirs["total"], jbr=goldens.part(theirs, "loss"),
+                jgrads=goldens.part(theirs, "grad"), jnew=goldens.part(theirs, "new"),
+                total=total, br=br, params=params, old=old, rout=rout, config=config)
 
 
 @pytest.fixture(scope="module")
@@ -162,8 +212,9 @@ def _check_loss_breakdown(both):
     for k in OVERFLOW_KEYS:
         assert float(br[k]) == float(jbr[k]) == 0.0, k
     for k in jbr:
-        np.testing.assert_allclose(float(br[k]), float(jbr[k]), rtol=1e-4, atol=1e-7, err_msg=k)
-    np.testing.assert_allclose(float(both["total"]), float(both["jtotal"]), rtol=1e-4)
+        np.testing.assert_allclose(float(br[k]), float(jbr[k]), rtol=LOSS_RTOL, atol=LOSS_ATOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(both["total"]), float(both["jtotal"]), rtol=LOSS_RTOL)
     assert float(br["silhouette"]) > 0 and float(br["photo"]) > 0
 
 
@@ -172,14 +223,14 @@ def _check_gradients(both):
         want = np.asarray(both["jgrads"][k])
         got = p.grad.numpy() if p.grad is not None else np.zeros_like(want)
         scale = max(np.abs(want).max(), 1e-12)
-        assert np.abs(got - want).max() <= 1e-3 * scale, k
+        assert np.abs(got - want).max() <= GRAD_TOL * scale, k
 
 
 def _check_parameters(both):
     lr = max(both["config"].lr_pose, both["config"].lr_app)
     for k, p in both["params"].items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(both["jnew"][k]),
-                                   rtol=0, atol=1e-2 * lr, err_msg=k)
+                                   rtol=0, atol=PARAM_TOL * lr, err_msg=k)
 
 
 @pytest.mark.parametrize("stage", [(True, False), (False, True)], ids=["stage1", "stage3"])

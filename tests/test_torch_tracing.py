@@ -34,15 +34,6 @@ SMALL = dict(img=32, texture=64, density="light",
 PARTS = ("geometry", "render", "vgg", "other", "adam")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the step is bit-equal on the CPU only so."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def scene():
     return bench._scene(2, use_arm=False, use_vgg=True, device="cpu", **SMALL)

@@ -54,14 +54,6 @@ SHARE = 0.005  # of a view's pixels that may part from harp_tpu's
 HELD = (0, VIEWS - 1, VIEWS, 2 * VIEWS - 1)  # views 0, 2, h_0, h_2
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def scene():
     jassets = jbuild(uv_size=TEX, density="light")

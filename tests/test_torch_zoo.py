@@ -12,6 +12,7 @@ and the model-file loaders) vs harp_tpu's, on CPU.
   breakdown rtol 1e-4, gradients within 1e-3 of each leaf's largest entry,
   parameters after the update within 1e-2 * lr (tests/test_torch_step.py's
   tolerances). K = 16 soft ids hold every within-blur face (checked).
+  harp_tpu's steps are read from tests/golden/harp_tpu_zoo_step_*.npz.
 - The registration-gated files missing: FileNotFoundError, as harp_tpu.
 - Every loader on files the test writes (a MANO pickle holding
   chumpy-style objects, OBJs with UVs, an SMPL-X npz and its arm
@@ -55,21 +56,19 @@ from harp_tpu_torch.render import pipeline
 from harp_tpu_torch.render.rasterizer import RasterConfig
 from harp_tpu_torch.utils import viz
 
+import _harp_goldens as goldens
+
 IMG, TEX, K = 32, 16, 16
 CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
               self_shadow=True, w_vgg=0.0, batch_size=2)
 RCFG_KW = dict(image_size=IMG, tile=8, cap=1024, face_chunk=256, faces_per_pixel=K,
                span_tiles=4, active_fraction=1.0)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tensors are small, and a pool per process
-    beside the suite's other workers makes each test take minutes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# The step parity tolerances of the docstring, which the golden's regenerator
+# reads too.
+LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-7
+GRAD_TOL = 1e-3  # of each leaf's largest entry
+PARAM_TOL = 1e-2  # of the larger learning rate
 
 
 def _assert_same(ours, theirs, path="x"):
@@ -187,18 +186,22 @@ def _scene(pose_dim, shape_dim):
     return init, images, masks, masks_er, {k: v.astype(np.float32) for k, v in appearance.items()}
 
 
-def _step_both(family):
-    """One stage-2 step of `family` in both packages from one state."""
+def _zoo_scene(family):
     jconfig = JHarpConfig(pcf_backend="pallas_interpret", model_type=family, **CFG_KW)
-    config = HarpConfig(model_type=family, **CFG_KW)
     jassets, jextras = jload_hand_model(jconfig, synthetic=True)
-    assets, extras = assets_from_numpy(jassets), extras_from_numpy(jextras)
-    jrcfg, rcfg = JRasterConfig(**RCFG_KW), RasterConfig(**RCFG_KW)
     model = jassets.model
     init, images, masks, masks_er, appearance = _scene(
         getattr(model, "ncomps", 45), model.shapedirs.shape[2])
     appearance = {k: v for k, v in appearance.items() if family == "html" or k != "html_texture"}
+    return jconfig, jassets, jextras, init, images, masks, masks_er, appearance
 
+
+def _harp_tpu_zoo_step(family) -> dict:
+    """harp_tpu's stage-2 step of `family` (its loss, gradient and both Adam
+    groups in one jit), the golden harp_tpu_zoo_step_<family>.npz: its
+    total and loss terms, its gradients and the updated parameters."""
+    jconfig, jassets, jextras, init, images, masks, masks_er, appearance = _zoo_scene(family)
+    jrcfg = JRasterConfig(**RCFG_KW)
     jparams, jaux = jinit_params(init, jassets, jconfig)
     jparams.update({k: jnp.asarray(v) for k, v in appearance.items()})
     fids = np.arange(2)
@@ -219,6 +222,38 @@ def _step_both(family):
         return total, br, g, p
 
     jtotal, jbr, jgrads, jnew = jstep(jparams, states)
+    return goldens.pack(total=jtotal, loss=jbr, grad=jgrads, new=jnew)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("family", ["html", "nimble"])
+def test_harp_tpu_golden_of_the_zoo_step_is_current(family):
+    config = HarpConfig(model_type=family, **CFG_KW)
+    lr = max(config.lr_pose, config.lr_app)
+
+    def tolerance(k, want):  # test_zoo_step_matches_harp_tpu's three checks
+        if k == "total" or k.startswith("loss."):
+            return LOSS_ATOL + LOSS_RTOL * np.abs(want)
+        if k.startswith("grad."):
+            return GRAD_TOL * max(np.abs(want).max(), 1e-12)
+        if k.startswith("new."):
+            return PARAM_TOL * lr
+        return None
+
+    fresh = _harp_tpu_zoo_step(family)
+    goldens.assert_current(f"harp_tpu_zoo_step_{family}", fresh, tolerance)
+
+
+def _step_both(family):
+    """One stage-2 step of `family` in both packages from one state:
+    harp_tpu's stored (_harp_tpu_zoo_step), the port's from its key."""
+    _, jassets, jextras, init, images, masks, masks_er, appearance = _zoo_scene(family)
+    config = HarpConfig(model_type=family, **CFG_KW)
+    assets, extras = assets_from_numpy(jassets), extras_from_numpy(jextras)
+    rcfg = RasterConfig(**RCFG_KW)
+    theirs = goldens.load(f"harp_tpu_zoo_step_{family}")
+    fids = np.arange(2)
+    key = jax.random.PRNGKey(3)
 
     params, aux = init_params(init, assets, config, device="cpu")
     with torch.no_grad():
@@ -234,8 +269,9 @@ def _step_both(family):
     step = make_train_step(assets, config, rcfg, params, device="cpu", extras=extras)
     total, br = step(aux, fids_t, *[torch.from_numpy(a) for a in (images, masks, masks_er)],
                      ref, coarse_on=True, app_on=True, key=np.asarray(key, np.uint32))
-    return dict(jtotal=jtotal, jbr=jbr, jgrads=jgrads, jnew=jnew, total=total, br=br,
-                params=params, old=old, rout=rout, config=config)
+    return dict(jtotal=theirs["total"], jbr=goldens.part(theirs, "loss"),
+                jgrads=goldens.part(theirs, "grad"), jnew=goldens.part(theirs, "new"),
+                total=total, br=br, params=params, old=old, rout=rout, config=config)
 
 
 @pytest.fixture(scope="module")
@@ -261,22 +297,22 @@ def test_zoo_step_matches_harp_tpu(request, family, check):
         for k in OVERFLOW_KEYS:
             assert float(br[k]) == float(jbr[k]) == 0.0, k
         for k in jbr:
-            np.testing.assert_allclose(float(br[k]), float(jbr[k]), rtol=1e-4, atol=1e-7,
+            np.testing.assert_allclose(float(br[k]), float(jbr[k]), rtol=LOSS_RTOL, atol=LOSS_ATOL,
                                        err_msg=k)
-        np.testing.assert_allclose(float(both["total"]), float(both["jtotal"]), rtol=1e-4)
+        np.testing.assert_allclose(float(both["total"]), float(both["jtotal"]), rtol=LOSS_RTOL)
         assert float(br["silhouette"]) > 0 and float(br["photo"]) > 0
     elif check == "gradients":
         for k, p in both["params"].items():
             want = np.asarray(both["jgrads"][k])
             got = p.grad.numpy() if p.grad is not None else np.zeros_like(want)
-            assert np.abs(got - want).max() <= 1e-3 * max(np.abs(want).max(), 1e-12), k
+            assert np.abs(got - want).max() <= GRAD_TOL * max(np.abs(want).max(), 1e-12), k
         if family == "html":
             assert np.abs(np.asarray(both["jgrads"]["html_texture"])).max() > 0
     else:
         lr = max(both["config"].lr_pose, both["config"].lr_app)
         for k, p in both["params"].items():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(both["jnew"][k]),
-                                       rtol=0, atol=1e-2 * lr, err_msg=k)
+                                       rtol=0, atol=PARAM_TOL * lr, err_msg=k)
         moved = {k for k, p in both["params"].items() if not torch.equal(p, both["old"][k])}
         assert ("html_texture" in moved) == (family == "html")
         assert ("texture" in moved) == (family == "nimble")  # HTML's texels stay

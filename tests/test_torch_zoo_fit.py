@@ -8,7 +8,8 @@ on the JAX side), harp_tpu with epoch_scan=0 and prefetch_compile=False.
 Both packages draw the same minibatch permutations and run the same key
 stream (HTML draws no texture-reg offsets). K = 16 soft ids hold every
 within-blur face of the scene, so harp_tpu's K-id silhouette gradient and
-the port's all-faces one (K2) are the same function.
+the port's all-faces one (K2) are the same function. harp_tpu's fit is
+read from tests/golden/harp_tpu_html_fit.npz (tests/_harp_goldens.py).
 
 Tolerances: per-epoch loss and each term rtol 1e-3 (as
 tests/test_torch_fit_sequence.py); final parameters within 1e-3 of each
@@ -37,6 +38,8 @@ from harp_tpu_torch.fit.optimizer import group_param_names
 from harp_tpu_torch.fit.params import init_params
 from harp_tpu_torch.render.rasterizer import RasterConfig
 
+import _harp_goldens as goldens
+
 IMG, TEX = 32, 16
 CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
               self_shadow=True, w_vgg=0.0, batch_size=2, model_type="html",
@@ -44,27 +47,66 @@ CFG_KW = dict(img_size=IMG, focal_length=2000.0 * IMG / 448, texture_size=TEX,
 RCFG_KW = dict(image_size=IMG, tile=8, cap=1024, face_chunk=256, faces_per_pixel=16,
                span_tiles=4, active_fraction=1.0)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# The parity tolerances of the docstring, which the golden's regenerator reads
+# too.
+LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-7  # each epoch's loss and terms
+PARAM_TOL = 1e-3  # of each leaf's largest entry
+STEP_TOL = 1e-2  # of its group's lr, per epoch
 
 
-@pytest.fixture(scope="module")
-def both():
+def _scene():
     jconfig = JHarpConfig(**CFG_KW)
     jassets, jextras = jload_hand_model(jconfig, synthetic=True)
     jrcfg = JRasterConfig(**RCFG_KW)
     images, masks, masks_er, _, init = jmake_sequence(jassets, jconfig, jrcfg, n_frames=2,
                                                       seed=0)
     arrays = [np.asarray(a) for a in (images, masks, masks_er)]
+    return jconfig, jassets, jextras, jrcfg, arrays, init
+
+
+def _harp_tpu_html_fit() -> dict:
+    """harp_tpu's HTML fit of the scene, the golden harp_tpu_html_fit.npz:
+    its history and final parameters."""
+    jconfig, jassets, jextras, jrcfg, arrays, init = _scene()
     jparams, jaux = jinit_params(init, jassets, jconfig)
     jfinal, jhist = jfit_sequence(jconfig, jassets, JFitData(*map(jnp.asarray, arrays)),
                                   jparams, jaux, rcfg=jrcfg, extras=jextras, epoch_scan=0,
                                   prefetch_compile=False)
+    return goldens.pack(hist=jhist, param=jfinal)
+
+
+def _lr(config) -> dict:
+    """Each parameter's learning rate."""
+    lr = {k: config.lr_pose for k in group_param_names(config)["coarse"]}
+    lr.update({k: config.lr_app for k in group_param_names(config)["app"]})
+    return lr
+
+
+def _param_tolerance(config, leaf, want):
+    return (PARAM_TOL * max(np.abs(want).max(), 1e-12)
+            + config.total_epoch * STEP_TOL * _lr(config).get(leaf, 0.0))
+
+
+@pytest.mark.slow
+def test_harp_tpu_golden_of_the_html_fit_is_current():
+    config = HarpConfig(**CFG_KW)
+
+    def tolerance(k, want):  # test_html_fit_sequence_epoch_losses..., final_parameters...
+        if k == "hist":
+            return LOSS_ATOL + LOSS_RTOL * np.abs(want)
+        if k.startswith("param."):
+            return _param_tolerance(config, k[len("param."):], want)
+        return None
+
+    goldens.assert_current("harp_tpu_html_fit", _harp_tpu_html_fit(), tolerance)
+
+
+@pytest.fixture(scope="module")
+def both():
+    """harp_tpu's fit (stored, _harp_tpu_html_fit) and the port's."""
+    _, jassets, jextras, _, arrays, init = _scene()
+    theirs = goldens.load("harp_tpu_html_fit")
+    jhist, jfinal = goldens.part(theirs, "hist"), goldens.part(theirs, "param")
 
     config, assets = HarpConfig(**CFG_KW), assets_from_numpy(jassets)
     params, aux = init_params(init, assets, config, device="cpu")
@@ -84,21 +126,17 @@ def test_html_fit_sequence_epoch_losses_match_harp_tpu(both):
         for k in OVERFLOW_KEYS:
             assert ours[k] == 0.0, k
         for k in theirs:
-            np.testing.assert_allclose(ours[k], float(theirs[k]), rtol=1e-3, atol=1e-7,
-                                       err_msg=f"epoch {theirs['epoch']}: {k}")
+            np.testing.assert_allclose(ours[k], float(theirs[k]), rtol=LOSS_RTOL,
+                                       atol=LOSS_ATOL, err_msg=f"epoch {theirs['epoch']}: {k}")
     assert both["hist"][1]["photo"] > 0
 
 
 def test_html_fit_sequence_final_parameters_match_harp_tpu(both):
     config = HarpConfig(**CFG_KW)
-    lr = {k: config.lr_pose for k in group_param_names(config)["coarse"]}
-    lr.update({k: config.lr_app for k in group_param_names(config)["app"]})
     for k, p in both["final"].items():
         want = np.asarray(both["jfinal"][k])
         got = p.detach().numpy()
-        bound = (1e-3 * max(np.abs(want).max(), 1e-12)
-                 + config.total_epoch * 1e-2 * lr.get(k, 0.0))
-        assert np.abs(got - want).max() <= bound, k
+        assert np.abs(got - want).max() <= _param_tolerance(config, k, want), k
     # The basis coefficients moved; the free texels and the normal map did not.
     moved = {k for k, p in both["final"].items() if not torch.equal(p, both["start"][k])}
     assert "html_texture" in moved and not {"texture", "normal_map"} & moved
