@@ -90,7 +90,8 @@ def change_gap(params0: dict, prog: dict, ref: dict, ref_grads: dict) -> dict:
 
 def reference_fit(inputs, epochs: int, tf32: bool = False) -> dict:
     """The reference's first `epochs` epochs on the cell's inputs (with tf32
-    the control: float32 matrix products and convolutions in TF32)."""
+    the control: float32 matrix products and convolutions in TF32), with
+    the family's reference-side statics as the step's extras."""
     from benchmark.reference.fit.params import init_params
     from benchmark.reference.losses.perceptual import Vgg16Features
     from benchmark.reference.reference_flags import precision
@@ -105,7 +106,8 @@ def reference_fit(inputs, epochs: int, tf32: bool = False) -> dict:
         # 128 face slots a pass of the plain rasterizer: its (frames, tiles,
         # slots, pixels) tensors then fit beside the step at the arm's 392 tiles.
         out = follow_fit(cfg, inputs.ref_assets, cfg.raster_config(face_chunk=128), inputs.images,
-                         inputs.masks, inputs.masks_eroded, params0, aux, vgg, epochs)
+                         inputs.masks, inputs.masks_eroded, params0, aux, vgg, epochs,
+                         extras=inputs.family.reference_extras(inputs))
     out["params0"] = {k: v.detach() for k, v in params0.items()}
     return out
 

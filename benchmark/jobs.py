@@ -52,6 +52,7 @@ class FitCell:
         self.config = HarpConfig(**harp_kwargs(inputs.spec, traffic))
         self.rcfg = self.config.raster_config()
         self.assets = port_assets(inputs)
+        self.extras = inputs.family.program_extras(inputs)
         self.data = FitData(inputs.images, inputs.masks, inputs.masks_eroded)
         self.params0, self.aux = init_params(inputs.input_params, self.assets, self.config,
                                              device=self.device)
@@ -65,7 +66,7 @@ class FitCell:
 
     def release(self) -> None:
         """Drop the program's state before the reference runs."""
-        for k in ("assets", "data", "params0", "aux", "vgg"):
+        for k in ("assets", "extras", "data", "params0", "aux", "vgg"):
             self.__dict__.pop(k, None)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -75,7 +76,7 @@ class FitCell:
 
         params = {k: v.detach().clone().requires_grad_(True) for k, v in self.params0.items()}
         return fit_sequence(config, self.assets, self.data, params, self.aux, rcfg=self.rcfg,
-                            vgg=self.vgg, out_dir=out_dir,
+                            vgg=self.vgg, out_dir=out_dir, extras=self.extras,
                             image_log_every=self.traffic["image_log_every"],
                             epoch_scan=self.traffic["epoch_scan"], device=self.device)
 

@@ -8,7 +8,8 @@ offsets come from harp_tpu's threefry key stream, the ARAP reference is
 frame 0 at the initial parameters and the GT VGG pyramids are cached in
 the VGG's compute dtype, as the program's fit does. Returns each epoch's
 mean loss and terms, the parameters after the last step, and each leaf's
-gradient at the first step.
+gradient at the first step. extras: the model family's statics, as the
+step takes them (HTML's texture basis), or None.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from benchmark.reference.render import pipeline
 
 
 def follow_fit(config, assets, rcfg, images, masks, masks_eroded, params0: dict, aux: dict,
-               vgg, epochs: int, seed: int = 0) -> dict:
+               vgg, epochs: int, seed: int = 0, extras: dict | None = None) -> dict:
     dev = images.device
     n = images.shape[0]
     bs = min(config.batch_size, n)
@@ -36,7 +37,7 @@ def follow_fit(config, assets, rcfg, images, masks, masks_eroded, params0: dict,
     with torch.no_grad():
         ref_verts = pipeline.mesh_forward(
             params, torch.zeros(1, dtype=torch.long, device=dev), assets, config)[0][0]
-    step = TrainStep(assets, config, rcfg, params, device=dev, vgg=vgg)
+    step = TrainStep(assets, config, rcfg, params, device=dev, vgg=vgg, extras=extras)
     rng = np.random.RandomState(seed)
     keys = _key_stream_np(seed, config.total_epoch * steps)
     plateau = PlateauState()

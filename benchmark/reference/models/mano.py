@@ -60,6 +60,13 @@ class ManoModel:
     def num_joints(self) -> int:
         return self.J_regressor.shape[0]
 
+    def pose_frames(self, params: dict, fids: torch.Tensor):
+        """The fit's parameters at frames fids posed: (verts (B, V, 3) mm,
+        joints (B, 21, 3) mm in MANO order)."""
+        shape = params["shape"][None].expand(fids.shape[0], -1)
+        return mano_forward(self, torch.cat([params["rot"][fids], params["pose"][fids]], 1),
+                            shape, params["trans"][fids])
+
 
 def mano_forward(model: ManoModel, pose_coeffs: torch.Tensor,
                  betas: torch.Tensor, trans: torch.Tensor):

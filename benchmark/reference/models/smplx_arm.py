@@ -85,6 +85,14 @@ class SmplxArmModel:
     def extra_order(self) -> TableOrder:
         return TableOrder.of(self.extra_joint_vertex_ids, self.num_verts)
 
+    def pose_frames(self, params: dict, fids: torch.Tensor):
+        """The fit's parameters at frames fids posed: (the arm submesh's
+        verts (B, V, 3) mm, joints (B, 22, 3) mm: MANO order, then the
+        elbow)."""
+        shape = params["shape"][None].expand(fids.shape[0], -1)
+        return smplx_arm_forward(self, shape, params["rot"][fids], params["trans"][fids],
+                                 params["pose"][fids], params["wrist_pose"][fids])
+
 
 def smplx_arm_forward(model: SmplxArmModel, betas: torch.Tensor,
                       global_orient: torch.Tensor, transl: torch.Tensor,

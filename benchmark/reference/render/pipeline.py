@@ -11,8 +11,6 @@ from __future__ import annotations
 import torch
 
 from benchmark.reference.device import constant
-from benchmark.reference.models.mano import mano_forward
-from benchmark.reference.models.smplx_arm import smplx_arm_forward
 from benchmark.reference.ops.mesh import apply_subdivision, vertex_normals
 from benchmark.reference.ops.numerics import safe_normalize
 from benchmark.reference.render import camera as cam_mod
@@ -25,20 +23,11 @@ from benchmark.reference.render.rasterizer import (
 
 
 def mesh_forward(params: dict, fids: torch.Tensor, assets, config):
-    """Pose the model (NIMBLE, the SMPL-X arm or MANO), subdivide, displace
-    along the vertex normals. Returns (verts (B, V_render, 3) metres,
-    joints (B, J, 3) mm: 21 in MANO order, 22 for the arm with its elbow)."""
-    B = fids.shape[0]
-    pose = params["pose"][fids]
-    rot = params["rot"][fids]
-    trans = params["trans"][fids]
-    shape = params["shape"][None].expand(B, -1)
-    if config.use_arm:
-        verts_mm, joints_mm = smplx_arm_forward(assets.model, shape, rot, trans, pose,
-                                                params["wrist_pose"][fids])
-    else:
-        verts_mm, joints_mm = mano_forward(assets.model, torch.cat([rot, pose], 1),
-                                           shape, trans)
+    """Pose the model through its own pose_frames (each reference model in
+    models/ has one), subdivide, displace along the vertex normals.
+    Returns (verts (B, V_render, 3) metres, joints (B, J, 3) mm, as the
+    model gives them)."""
+    verts_mm, joints_mm = assets.model.pose_frames(params, fids)
     verts = verts_mm / 1000.0
     if assets.subdivision is not None:
         verts = apply_subdivision(assets.subdivision, verts)

@@ -3,17 +3,19 @@
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Reads the cell from BENCHMARK.json, its configuration from
-benchmark/configs/<config>.json, its traffic from
-benchmark/traffic/<traffic>.json and the limits of its compared numbers
-from benchmark/limits/<cell>.json; each metric is a reader in
-benchmark/metrics/<name>.py. Set-up (timed as setup_s, from this module's
-import): the inputs from --seed, the program's objects, one warm-up job.
-Then jobs run back to back for --seconds (every job counted whole), the
-peak device memory is read, the program's state is freed and the output
-check runs against the plain reference. The last line of standard output
-is one JSON object; the numbers compared, each with its limit, are also
-the last lines of standard error. Exits non-zero without a CUDA device,
-without the program, or if jax, jaxlib, flax or harp_tpu were loaded.
+benchmark/configs/<config>.json, its model family from
+benchmark/families/<model>.py (benchmark/inputs.py says what it
+defines), its traffic from benchmark/traffic/<traffic>.json and the
+limits of its compared numbers from benchmark/limits/<cell>.json; each
+metric is a reader in benchmark/metrics/<name>.py. Set-up (timed as
+setup_s, from this module's import): the inputs from --seed, the
+program's objects, one warm-up job. Then jobs run back to back for
+--seconds (every job counted whole), the peak device memory is read, the
+program's state is freed and the output check runs against the plain
+reference. The last line of standard output is one JSON object; the
+numbers compared, each with its limit, are also the last lines of
+standard error. Exits non-zero without a CUDA device, without the
+program, or if jax, jaxlib, flax or harp_tpu were loaded.
 """
 
 import time
@@ -90,7 +92,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t0: floa
     from benchmark.trace import summarize, traced
 
     cell, spec, traffic, e2e, layers = find_cell(name)
-    inputs = make_inputs(spec, seed, device, traffic)
+    inputs = make_inputs(spec, seed, device, traffic, families=os.path.join(HERE, "families"))
     if device.type == "cuda":  # the peak is the program's, not the input renderer's
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
