@@ -216,7 +216,7 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
     stamp their gradients in the backward."""
     losses = {}
     stamp(stamps, "start")
-    verts, joints = pipeline.mesh_forward(params, fids, assets, config)
+    verts, joints = pipeline.mesh_forward(params, fids, assets, config, stamps=stamps)
     R, T = pipeline.camera_for_frames(params, fids, config)
     verts = mark(stamps, verts, "verts_grad")
     stamp(stamps, "camera")

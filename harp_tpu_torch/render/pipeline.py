@@ -19,12 +19,16 @@ from harp_tpu_torch.render.rasterizer import (
     get_hard_ids, raster_compact, raster_full, scatter_tiles, soft_alpha_fast_pack,
     tile_pixel_coords,
 )
+from harp_tpu_torch.utils.profiling import mark, stamp
 
 
-def mesh_forward(params: dict, fids: torch.Tensor, assets, config):
+def mesh_forward(params: dict, fids: torch.Tensor, assets, config, stamps=None):
     """Pose the model (NIMBLE, the SMPL-X arm or MANO), subdivide, displace
     along the vertex normals. Returns (verts (B, V_render, 3) metres,
-    joints (B, J, 3) mm: 21 in MANO order, 22 for the arm with its elbow)."""
+    joints (B, J, 3) mm: 21 in MANO order, 22 for the arm with its elbow).
+    stamps (utils/profiling.StepStamps or None): "posed" after the model's
+    forward, and a marker on its vertices whose backward stamps
+    "posed_grad"."""
     B = fids.shape[0]
     pose = params["pose"][fids]
     rot = params["rot"][fids]
@@ -41,7 +45,8 @@ def mesh_forward(params: dict, fids: torch.Tensor, assets, config):
     else:
         verts_mm, joints_mm = mano_forward(assets.model, torch.cat([rot, pose], 1),
                                            shape, trans)
-    verts = verts_mm / 1000.0
+    stamp(stamps, "posed")
+    verts = mark(stamps, verts_mm, "posed_grad") / 1000.0
     if assets.subdivision is not None:
         verts = apply_subdivision(assets.subdivision, verts)
     disps = params.get("verts_disps")

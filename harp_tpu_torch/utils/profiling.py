@@ -122,15 +122,19 @@ def span_s(rec: dict) -> float:
 # Layer stamps of the train step
 # ---------------------------------------------------------------------------
 
-# A stamp table's columns, in the order a step writes them. Forward
-# (fit/driver.compute_losses): the step's start; after mesh_forward and
-# the camera; before and after the VGG term (both written, back to back,
-# where a step has none); the losses' end. Backward: the VGG input's and
-# the vertices' gradients complete (marker nodes; unwritten, 0, where the
-# step has no such gradient); after backward (TrainStep); after the two
-# Adams, the step's end.
+# A stamp table's columns. Forward (fit/driver.compute_losses): the step's
+# start; after mesh_forward and the camera; before and after the VGG term
+# (both written, back to back, where a step has none); the losses' end.
+# Backward: the VGG input's and the vertices' gradients complete (marker
+# nodes; unwritten, 0, where the step has no such gradient); after backward
+# (TrainStep). Then the model's two, which the step writes inside its
+# geometry: after the family's model forward in render/pipeline.mesh_forward
+# ("posed"), and its output's gradient complete ("posed_grad", a marker).
+# Last, after the two Adams, the step's end. The step writes the columns in
+# this order but for the model's two; they come before the end so that the
+# older columns keep their places.
 STAMP_SLOTS = ("start", "camera", "vgg_in", "vgg_out", "losses", "vgg_grad", "verts_grad",
-               "backward", "adam")
+               "backward", "posed", "posed_grad", "adam")
 _COL = {s: i for i, s in enumerate(STAMP_SLOTS)}
 
 
@@ -220,12 +224,17 @@ def step_parts(t) -> dict:
       gradient all-reduce too).
     An unwritten gradient stamp (0) takes the time that makes its part's
     backward stretch empty: the VGG input's the losses' end, the vertices'
-    the end of backward."""
+    and the model's the end of backward.
+    "model", a part of geometry and not in the sum: start to posed (the
+    family's model forward: MANO, the arm or NIMBLE) and the model output's
+    gradient to the end of backward (its backward to the parameters)."""
     t = np.asarray(t, np.int64)
     c = {s: t[:, i] for i, s in enumerate(STAMP_SLOTS)}
     vgg_grad = np.where(c["vgg_grad"] == 0, c["losses"], c["vgg_grad"])
     verts_grad = np.where(c["verts_grad"] == 0, c["backward"], c["verts_grad"])
+    posed_grad = np.where(c["posed_grad"] == 0, c["backward"], c["posed_grad"])
     return {"geometry": (c["camera"] - c["start"]) + (c["backward"] - verts_grad),
+            "model": (c["posed"] - c["start"]) + (c["backward"] - posed_grad),
             "render": (c["vgg_in"] - c["camera"]) + (verts_grad - vgg_grad),
             "vgg": (c["vgg_out"] - c["vgg_in"]) + (vgg_grad - c["losses"]),
             "other": c["losses"] - c["vgg_out"],

@@ -124,13 +124,13 @@ def test_a_span_starts_with_its_profiler_event():
         assert abs(r["end_ns"] - e.end_ns()) < 1_000_000, r["name"]
 
 
-@pytest.mark.parametrize("traced,markers,stamps", [(False, 0, 0), (True, 2, 9)],
+@pytest.mark.parametrize("traced,markers,stamps", [(False, 0, 0), (True, 3, 11)],
                          ids=["tracing_off", "tracing_on"])
 def test_the_steps_marker_nodes_and_stamps(scene, monkeypatch, traced, markers, stamps):
     """compute_losses and its backward with a stamp row (tracing on) and
-    without: two marker nodes (the vertices, the VGG input) and every slot
-    stamped once, or no node and no stamp; the loss and every gradient the
-    same bits either way."""
+    without: three marker nodes (the model's vertices, the render
+    vertices, the VGG input) and every slot stamped once, or no node and
+    no stamp; the loss and every gradient the same bits either way."""
     written = []
     real = StepStamps.__call__
     monkeypatch.setattr(StepStamps, "__call__",
@@ -156,6 +156,45 @@ def test_the_steps_marker_nodes_and_stamps(scene, monkeypatch, traced, markers, 
     assert torch.equal(total, plain_total)
     for k, g in grads.items():
         assert (g is None and plain_grads[k] is None) or torch.equal(g, plain_grads[k]), k
+    if traced:
+        assert sorted(written) == sorted(s for s in STAMP_SLOTS if s not in ("backward", "adam"))
+
+
+FAMILIES = {"mano": {}, "arm": {"use_arm": True}, "nimble": {"model_type": "nimble"}}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_the_model_part_lies_inside_the_geometry(family):
+    """One stamped train step of each model family (the synthetic MANO
+    hand, the SMPL-X arm, the NIMBLE stand-in; 32^2, two frames, stages
+    both on, no VGG): every slot but the VGG input's gradient written, the
+    model part non-negative and no larger than the geometry, and the five
+    parts, without it, summing to the step."""
+    from harp_tpu_torch.config import HarpConfig
+    from harp_tpu_torch.data.synthetic import make_synthetic_sequence
+    from harp_tpu_torch.fit.params import init_params
+    from harp_tpu_torch.models.zoo import load_hand_model
+    from harp_tpu_torch.render import pipeline
+
+    config = HarpConfig(img_size=32, focal_length=2000.0 * 32 / 448, texture_size=32,
+                        batch_size=2, **FAMILIES[family])
+    rcfg = config.raster_config(**SMALL["raster_kw"])
+    assets, extras = load_hand_model(config, synthetic=True)
+    images, masks, masks_er, _, init = make_synthetic_sequence(assets, config, rcfg,
+                                                               n_frames=2, seed=0, device="cpu")
+    params, aux = init_params(init, assets, config, device="cpu")
+    fids = torch.arange(2)
+    with torch.no_grad():
+        ref_verts = pipeline.mesh_forward(params, fids[:1], assets, config)[0][0]
+    step = make_train_step(assets, config, rcfg, params, device="cpu", extras=extras)
+    table = torch.zeros(1, len(STAMP_SLOTS), dtype=torch.int64)
+    step(aux, fids, images, masks, masks_er, ref_verts, coarse_on=True, app_on=True,
+         key=np.array([0, 7], np.uint32), stamps=StepStamps(table, torch.zeros(1, dtype=torch.int64)))
+    t = table.numpy()
+    assert [s for s, v in zip(STAMP_SLOTS, t[0]) if v == 0] == ["vgg_grad"]
+    parts = step_parts(t)
+    assert (parts["model"] >= 0).all() and (parts["model"] <= parts["geometry"]).all()
+    assert (sum(parts[k] for k in PARTS) == parts["step"]).all()
 
 
 @pytest.mark.parametrize("traced", [False, True], ids=["tracing_off", "tracing_on"])
@@ -182,8 +221,9 @@ def test_the_epoch_scan_stamps_only_under_a_profiler(scene, monkeypatch, traced)
     assert t.shape == (2, len(STAMP_SLOTS)) and (t > 0).all()
     assert scan.eager_rows == 2
     parts = step_parts(t)
-    for k in PARTS:
+    for k in PARTS + ("model",):
         assert (parts[k] >= 0).all(), k
+    assert (parts["model"] <= parts["geometry"]).all()
     assert (sum(parts[k] for k in PARTS) == parts["step"]).all()
     assert (parts["step"] > 0).all() and (t[1, 0] >= t[0, -1])
 
