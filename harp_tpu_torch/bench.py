@@ -28,9 +28,11 @@ cap 448 both.
 
 roofline (mfu_roofline.py): the VGG term's analytic convolution count (3 x
 the pred side's forward: forward, checkpoint recompute, backward to the
-input), its ms (the VGG step minus the no-VGG step of the same run), its
-MFU against the H100's bf16 peak, and the whole VGG step's operation count
-(torch.utils.flop_counter on one eager step) over its time, mfu_step_vgg.
+input; 2 x where the step keeps the forward's activations instead of
+recomputing them, as it does on the card), its ms (the VGG step minus the
+no-VGG step of the same run), its MFU against the H100's bf16 peak, and the
+whole VGG step's operation count (torch.utils.flop_counter on one eager
+step) over its time, mfu_step_vgg.
 breakdown (profile_step.py): the headline step's top kernels and its
 longest device idle gaps by the host op open when each began.
 
@@ -156,7 +158,8 @@ def _record(sc, times: list, overflow: dict, peak_gib, prof) -> dict:
             "profiled_wall_ms": prof and prof["wall_ms"], "peak_gib": peak_gib,
             "budget": sc.budget, "overflow": overflow,
             "vgg": None if sc.vgg is None else {"w_vgg": sc.config.w_vgg,
-                                                "compute_dtype": sc.config.vgg_compute_dtype},
+                                                "compute_dtype": sc.config.vgg_compute_dtype,
+                                                "recompute": sc.step.vgg_recompute},
             "profile": prof}
 
 
@@ -294,16 +297,17 @@ def vgg_conv_flops_per_frame(img: int) -> float:
 def roofline(vgg: dict, novgg: dict, img: int = IMG) -> dict:
     """mfu_roofline.py's accounting against the H100's bf16 peak: the VGG
     term's analytic operations, 3 x the pred side's forward (the forward,
-    its checkpoint recompute and the backward to the input; the filters
-    are frozen and the GT side is cached), over its ms (the VGG step's
-    trimmed mean minus the no-VGG step's), and over its device time (the
-    profiled steps' busy ms, VGG minus no VGG: steadier than the walls of
-    the eager, host-bound step); and the whole VGG step's FlopCounterMode
-    count over the VGG step's trimmed mean (mfu_step_vgg). All in percent.
+    its checkpoint recompute and the backward to the input; 2 x where the
+    step did not recompute; the filters are frozen and the GT side is
+    cached), over its ms (the VGG step's trimmed mean minus the no-VGG
+    step's), and over its device time (the profiled steps' busy ms, VGG
+    minus no VGG: steadier than the walls of the eager, host-bound step);
+    and the whole VGG step's FlopCounterMode count over the VGG step's
+    trimmed mean (mfu_step_vgg). All in percent.
     Bytes accessed: XLA's cost analysis has no torch counterpart."""
     B = vgg["frames"]
     fwd = vgg_conv_flops_per_frame(img) * B
-    step_ops = 3.0 * fwd
+    step_ops = (3.0 if vgg["vgg"]["recompute"] else 2.0) * fwd
     delta_ms = vgg["trimmed_mean_ms"] - novgg["trimmed_mean_ms"]
     busy_ms = vgg["busy_ms"] - novgg["busy_ms"]
     achieved = step_ops / (delta_ms * 1e-3) if delta_ms > 0 else None

@@ -92,7 +92,12 @@ class HarpConfig:
     w_albedo: float = 0.5
     w_normal_reg: float = 0.1
     # VGG perceptual loss settings (losses/perceptual.py; the GT pyramid
-    # cache is made once per sequence by fit_sequence).
+    # cache is made once per sequence by fit_sequence). vgg_remat: False
+    # never runs the VGG forward again in the backward; True runs it again
+    # where memory requires it: on a CUDA device where what the backward
+    # would keep does not fit in the free memory with its headroom
+    # (perceptual.recompute, chosen by the TrainStep), and always where no
+    # free-memory figure can be read (the CPU). The same bits either way.
     vgg_weights: str = ""
     vgg_chunk: int = 6
     vgg_compute_dtype: str = "bfloat16"

@@ -38,7 +38,8 @@ from harp_tpu_torch.fit.optimizer import (
 )
 from harp_tpu_torch.losses.basic import arap_loss, kps_anchor_loss, vert_disp_reg
 from harp_tpu_torch.losses.perceptual import (
-    Vgg16Features, precompute_slices, vgg_feature_l1, vgg_feature_l1_cached,
+    Vgg16Features, free_bytes, precompute_slices, recompute, saved_bytes, vgg_feature_l1,
+    vgg_feature_l1_cached,
 )
 from harp_tpu_torch.losses.texture_reg import albedo_reg, normal_reg
 from harp_tpu_torch.ops.mesh import laplacian_smoothing_loss, normal_consistency_loss
@@ -196,7 +197,8 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
                    assets, config, rcfg: RasterConfig, ref_verts,
                    coarse_on: bool, app_on: bool, generator=None,
                    offsets=None, vgg: Vgg16Features | None = None, key=None,
-                   extras: dict | None = None, stamps: StepStamps | None = None):
+                   extras: dict | None = None, stamps: StepStamps | None = None,
+                   vgg_remat: bool | None = None):
     """All fitting losses for one minibatch -> (total, breakdown).
 
     extras: the model family's statics ({"texture_basis": TextureBasis}
@@ -207,8 +209,9 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
     when given; else drawn from `key`, the step's harp_tpu subkey (two
     uint32), as harp_tpu draws them; else from `generator`. vgg: the
     perceptual network, or None for no VGG term; aux["vgg_gt"] holds the
-    cached GT pyramids when the fit made them. The breakdown holds every
-    loss term and the raster overflow counters.
+    cached GT pyramids when the fit made them; vgg_remat: whether the VGG
+    term checkpoints its chunks (TrainStep's choice; None: config.vgg_remat).
+    The breakdown holds every loss term and the raster overflow counters.
 
     stamps: the step's layer stamps (utils/profiling.StepStamps), or None
     for none: the forward's at the step's start, after the camera, around
@@ -278,13 +281,13 @@ def compute_losses(params, aux, fids, batch_imgs, batch_masks, batch_masks_er,
             vgg_in = mark(stamps, rgb * m, "vgg_grad")
     stamp(stamps, "vgg_in")
     if vgg_in is not None:
+        remat = config.vgg_remat if vgg_remat is None else vgg_remat
         if "vgg_gt" in aux:
             losses["vgg"] = vgg_feature_l1_cached(
-                vgg, vgg_in, aux["vgg_gt"], fids, chunk=config.vgg_chunk,
-                remat=config.vgg_remat)
+                vgg, vgg_in, aux["vgg_gt"], fids, chunk=config.vgg_chunk, remat=remat)
         else:
             losses["vgg"] = vgg_feature_l1(vgg, vgg_in, batch_imgs * m,
-                                           chunk=config.vgg_chunk, remat=config.vgg_remat)
+                                           chunk=config.vgg_chunk, remat=remat)
     stamp(stamps, "vgg_out")
     if app_on:
         if config.model_type not in ("nimble", "html"):
@@ -339,7 +342,14 @@ class TrainStep:
     multiplied on the host.
 
     stamps (utils/profiling.StepStamps or None): the step's layer stamps,
-    compute_losses' and two more, after backward and after the Adams."""
+    compute_losses' and two more, after backward and after the Adams.
+
+    The VGG term recomputes its chunks' forward in the backward only where
+    the card cannot hold what the backward would keep without it
+    (losses/perceptual.recompute; the same bits either way): the choice is
+    made at the first step of each frame shape, an eager one before any
+    capture, and kept. vgg_saved_bytes is that count (saved_bytes) and
+    vgg_recompute the choice; both None until a step runs the VGG term."""
 
     def __init__(self, assets, config, rcfg: RasterConfig, params: dict,
                  device=None, vgg: Vgg16Features | None = None,
@@ -353,6 +363,7 @@ class TrainStep:
         self.params = params
         self.mesh = mesh
         self.optimizers = build_optimizers(params, config)
+        self.vgg_saved_bytes = self.vgg_recompute = self._vgg_shape = None
 
     def __call__(self, aux, fids, batch_imgs, batch_masks, batch_masks_er,
                  ref_verts, lr_scale=1.0, *, coarse_on: bool,
@@ -360,13 +371,22 @@ class TrainStep:
                  stamps: StepStamps | None = None):
         for p in self.params.values():
             p.grad = None
+        remat = None
+        if app_on and self.vgg is not None:
+            shape = tuple(batch_imgs.shape[:3])
+            if shape != self._vgg_shape:
+                self._vgg_shape = shape
+                self.vgg_saved_bytes = saved_bytes(self.vgg, *shape)
+                self.vgg_recompute = recompute(self.config.vgg_remat, self.vgg_saved_bytes,
+                                               free_bytes(self.device))
+            remat = self.vgg_recompute
         with deterministic_convolutions():
             total, breakdown = compute_losses(
                 self.params, aux, fids, decode_frames(batch_imgs),
                 decode_frames(batch_masks), decode_frames(batch_masks_er),
                 self.assets, self.config, self.rcfg, ref_verts, coarse_on, app_on,
                 generator=generator, offsets=offsets, vgg=self.vgg, key=key,
-                extras=self.extras, stamps=stamps)
+                extras=self.extras, stamps=stamps, vgg_remat=remat)
             total.backward()
         stamp(stamps, "backward")
         if self.mesh is not None:
@@ -753,7 +773,9 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
     these spans' seconds: setup_total_s fit.setup's, vgg_gt_materialize_s
     fit.vgg_gt's, segment_s from segment.upload's start to segment.read's
     end, actions_s segment.actions', capture_s scan.capture's and fit_s
-    fit's until the last epoch's line."""
+    fit's until the last epoch's line. Once a stage that runs the VGG
+    term, it also has the step's vgg_recompute and vgg_saved_bytes
+    (TrainStep)."""
     from harp_tpu_torch.utils.io import save_checkpoint, save_result
     from harp_tpu_torch.utils.profiling import MetricsLogger
 
@@ -885,6 +907,18 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
                                    device=sums.device)
             return torch.where(counter, sums, sums / mesh.axis_size())
 
+        vgg_logged = set()
+
+        def log_vgg_choice(epoch: int, flags) -> None:
+            """The step's VGG choice (TrainStep.vgg_recompute) and the bytes
+            it weighed, once a stage, at the end of its first epochs."""
+            if (logger is None or not flags[1] or step.vgg_saved_bytes is None
+                    or flags in vgg_logged):
+                return
+            vgg_logged.add(flags)
+            logger.log(epoch, vgg_recompute=step.vgg_recompute,
+                       vgg_saved_bytes=step.vgg_saved_bytes)
+
         scan = None
         dplateau = DevicePlateau.of(plateau, dev) if use_scan else None
         try:
@@ -946,6 +980,7 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
                             if logger is not None:
                                 logger.log(epoch + i, lr_scale=float(scales_h[i]),
                                            **history[-1], **(timing if i == L - 1 else {}))
+                        log_vgg_choice(epoch + L - 1, (coarse_on, app_on))
                         epoch += L
                         continue
                     perm = rng.permutation(n)
@@ -973,6 +1008,7 @@ def fit_sequence(config, assets, data: FitData, params: dict, aux: dict,
                                     **{k: float(v) / steps for k, v in zip(keys, host[1:])}})
                     if logger is not None:
                         logger.log(epoch, lr_scale=plateau.scale, **history[-1])
+                    log_vgg_choice(epoch, (coarse_on, app_on))
                     run_actions(epoch, (epoch,))
                     if callback is not None:
                         callback(epoch, params, history[-1])

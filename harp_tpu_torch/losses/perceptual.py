@@ -30,6 +30,12 @@ torch.backends.cudnn flags at the time it runs, so the callers
 device.deterministic_convolutions() around both forward and backward.
 max_pool2d routes the gradient of a tie to the first maximum, as XLA's
 select-and-scatter does.
+
+Memory: with remat each frame chunk is checkpointed and its forward runs
+again in the backward; without it autograd keeps the chunk's activations
+(saved_bytes counts them). The two give the same bits, and recompute
+chooses between them from the free device memory (the train step asks once
+a frame shape).
 """
 
 from __future__ import annotations
@@ -140,6 +146,64 @@ def _feature_count_per_frame(vgg: Vgg16Features, h: int, w: int) -> int:
     for si, c in enumerate([64, 128, 256, 512]):
         n += (h // 2 ** si) * (w // 2 ** si) * c
     return n
+
+
+def saved_bytes(vgg: Vgg16Features, batch: int, h: int, w: int) -> int:
+    """Bytes that autograd keeps for the backward of the VGG term (either
+    of the losses below) over `batch` frames of h x w when the forward runs
+    once, without the checkpoint: per frame the input's cast to the
+    compute dtype (the first convolution's input; none in float32, where
+    the input is the caller's own tensor), each ReLU's output (the next
+    convolution's or pool's input too), each pool's output and its int64
+    indices, and the L1's sign mask, one bool an element of the pyramid
+    (jnp_abs's where keeps its condition; the differences are not kept).
+    The filters persist and are not counted."""
+    size = torch.empty((), dtype=_DTYPES[vgg.compute_dtype]).element_size()
+    per = h * w * 3 * size if vgg.compute_dtype != "float32" else 0
+    hh, ww, c, convs = h, w, 3, 0
+    for item in VGG16_LAYOUT:
+        if convs == N_CONVS:
+            break
+        if item == "M":
+            hh, ww = hh // 2, ww // 2
+            per += hh * ww * c * (size + 8)
+        else:
+            c, convs = int(item), convs + 1
+            per += hh * ww * c * size
+    return batch * (per + _feature_count_per_frame(vgg, h, w))
+
+
+# What the card must hold free beside the saved tensors for the VGG term to
+# keep them: as much again (the rest of the step's activations and
+# gradients, which grow with frames and pixels as the saved tensors do, and
+# the backward's working set of a chunk) and a fixed GiB (cuDNN's
+# workspaces, the caching allocator's rounding). On an H100, in fits of 18
+# frames of 448^2 with the hand, the arm and NIMBLE, the step's peak stood
+# 2.35-2.65 GB above what was allocated at the choice plus the 3.39 GB kept,
+# 0.69-0.78 of the kept bytes: the headroom, 4.46 GB there, covers it.
+_FIXED_HEADROOM = 1 << 30
+
+
+def free_bytes(device) -> int | None:
+    """Device memory this process can still allocate on a CUDA device: the
+    driver's free memory and the caching allocator's reserved but unused
+    blocks; None off CUDA (no such figure)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def recompute(remat: bool, saved: int, free: int | None) -> bool:
+    """Whether the VGG term checkpoints its chunks (runs their forward
+    again in the backward): never without `remat`; with it, where the
+    saved tensors (saved_bytes) and the headroom do not fit in `free`, or
+    where there is no figure of free memory (None: the CPU keeps remat as
+    asked). Both ways give the same bits."""
+    if not remat or free is None:
+        return remat
+    return 2 * saved + _FIXED_HEADROOM > free
 
 
 def _weighted_abs_sum(vgg: Vgg16Features, fp, ft):

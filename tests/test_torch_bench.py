@@ -53,9 +53,11 @@ def test_measure_on_the_cpu_has_every_key_and_labels_no_device_number(use_arm, u
     assert len(rec["overflow"]) == 6 and not any(rec["overflow"].values())
     cap = kw["raster_kw"]["cap"]
     assert rec["budget"] == {"active_fraction": 1.0, "span_tiles": 4, "cap": cap}
-    assert rec["vgg"] == ({"w_vgg": 1.0, "compute_dtype": "bfloat16"} if use_vgg else None)
+    assert rec["vgg"] == ({"w_vgg": 1.0, "compute_dtype": "bfloat16", "recompute": True}
+                          if use_vgg else None)
     # The step's convolutions are the VGG term's: forward, checkpoint
-    # recompute and backward to the input, 3 x the analytic forward.
+    # recompute (the CPU's choice) and backward to the input, 3 x the
+    # analytic forward.
     want = 3 * bench.vgg_conv_flops_per_frame(32) * 2 if use_vgg else 0
     assert rec["step_conv_flops"] == want and rec["step_flops"] > want
 
@@ -112,7 +114,7 @@ def test_flop_counter_counts_the_analytic_vgg_forward():
 
 def test_roofline_accounting():
     vgg = {"frames": 18, "trimmed_mean_ms": 90.0, "busy_ms": 63.0, "step_flops": 3.0e13,
-           "step_conv_flops": 2.9e13}
+           "step_conv_flops": 2.9e13, "vgg": {"recompute": True}}
     novgg = {"frames": 18, "trimmed_mean_ms": 50.0, "busy_ms": 22.0}
     r = bench.roofline(vgg, novgg)
     ops = 3 * bench.vgg_conv_flops_per_frame(448) * 18
@@ -127,6 +129,9 @@ def test_roofline_accounting():
     assert r["bytes_accessed"] == "not measured" and r["peak_tflops_used"] == 989.0
     # A VGG step no slower than the step without it has no MFU to give.
     assert bench.roofline(vgg, dict(novgg, trimmed_mean_ms=95.0))["vgg_mfu_pct"] is None
+    # A step that kept the forward's activations ran no recompute: 2 x the forward.
+    kept = bench.roofline(dict(vgg, vgg={"recompute": False}), novgg)
+    assert kept["vgg_step_tflop"] == pytest.approx(2 / 3 * ops / 1e12)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 10])

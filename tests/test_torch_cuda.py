@@ -310,11 +310,14 @@ def _light_fit_scene(cuda, n_frames=2, img=32):
     return assets, config, rcfg, (images, masks, masks_er), init
 
 
-def test_vgg_train_step_repeats_bit_equal(cuda):
-    """Two stage-2 TrainSteps with the VGG term (bf16, cached GT pyramids,
-    remat) from one state give the same gradients and parameters, bit for
-    bit: cuDNN held deterministic over the forward, the checkpoint's
-    recompute and the backward."""
+def test_vgg_train_step_repeats_bit_equal(cuda, monkeypatch):
+    """Stage-2 TrainSteps with the VGG term (bf16, cached GT pyramids) from
+    one state give the same gradients and parameters, bit for bit: twice
+    as the card chooses (its activations kept for the backward), and once
+    with no free memory to spare, which runs the checkpoint's recompute:
+    cuDNN held deterministic over the forward, the recompute and the
+    backward."""
+    from harp_tpu_torch.fit import driver
     from harp_tpu_torch.fit.driver import _key_stream_np, make_train_step
     from harp_tpu_torch.fit.params import init_params
     from harp_tpu_torch.losses.perceptual import Vgg16Features, precompute_slices
@@ -324,19 +327,22 @@ def test_vgg_train_step_repeats_bit_equal(cuda):
     vgg = Vgg16Features.create(compute_dtype="bfloat16", device=cuda)
     fids = torch.arange(2, device=cuda)
     results = []
-    for _ in range(2):
+    for squeezed in (False, False, True):
+        if squeezed:
+            monkeypatch.setattr(driver, "free_bytes", lambda dev: 0)
         params, aux = init_params(init, assets, config, device=cuda)
         aux["vgg_gt"] = precompute_slices(vgg, data[0] * data[2][..., None], chunk=1)
         ref = pipeline.mesh_forward(params, fids[:1], assets, config)[0][0].detach()
         step = make_train_step(assets, config, rcfg, params, device=cuda, vgg=vgg)
         _, br = step(aux, fids, *data, ref, coarse_on=True, app_on=True,
                      key=_key_stream_np(0, 1)[0])
-        assert float(br["vgg"]) > 0
+        assert float(br["vgg"]) > 0 and step.vgg_recompute is squeezed
         results.append({k: (p.grad.clone(), p.detach().clone()) for k, p in params.items()
                         if p.grad is not None})
-    for k, (g, p) in results[0].items():
-        assert torch.equal(g, results[1][k][0]), f"gradient of {k} differs"
-        assert torch.equal(p, results[1][k][1]), f"updated {k} differs"
+    for other in results[1:]:
+        for k, (g, p) in results[0].items():
+            assert torch.equal(g, other[k][0]), f"gradient of {k} differs"
+            assert torch.equal(p, other[k][1]), f"updated {k} differs"
 
 
 def test_three_epoch_fit_repeats_bit_equal(cuda):
